@@ -1,0 +1,96 @@
+"""One-call image-pair matching on the port (the reference's minimal
+public surface, as ``loftr_tpu.api``).
+
+    matcher = load_matcher()                  # seeded random init, on CUDA
+    out = match_pair(img0, img1, matcher)     # {mkpts0, mkpts1, mconf}
+
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``; without CUDA they raise instead of carrying on on the CPU.
+"""
+from __future__ import annotations
+
+import copy
+from typing import Optional
+
+import numpy as np
+import torch
+
+from loftr_tpu_torch.config import get_config
+from loftr_tpu_torch.models.matcher import LoFTR
+from loftr_tpu_torch.structs import MatchInput
+from loftr_tpu_torch.utils.weights import init_weights, load_checkpoint_state
+
+__all__ = ["match_pair", "load_matcher"]
+
+
+def resolve_device(device) -> torch.device:
+    """The device to run on; a CUDA device must exist."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "loftr_tpu_torch runs on a CUDA device and none is available; "
+            "pass device='cpu' explicitly to run the plain PyTorch path")
+    return dev
+
+
+def _to_gray_batch(img) -> np.ndarray:
+    """HxW / HxWx1 / HxWx3 (BGR: Rec601 gray) uint8/float -> [1,H,W,1]
+    float32 in [0, 1]."""
+    a = np.asarray(img)
+    if a.ndim == 3 and a.shape[-1] == 3:
+        a = a @ np.asarray([0.114, 0.587, 0.299], a.dtype)
+    a = a.reshape(a.shape[:2])
+    if a.dtype == np.uint8:
+        a = a.astype(np.float32) / 255.0
+    return np.asarray(a, np.float32)[None, :, :, None]
+
+
+def load_matcher(weights_path: Optional[str] = None,
+                 preset: str = "indoor_ds", seed: int = 0,
+                 device="cuda") -> LoFTR:
+    """A LoFTR matcher in eval mode on ``device``: weights from a reference
+    ``.ckpt`` when a path is given, else a seeded random init (an untrained
+    net finds few or no matches on real images)."""
+    dev = resolve_device(device)
+    model = LoFTR(get_config(preset).loftr)
+    if weights_path is not None:
+        model.load_state_dict(load_checkpoint_state(weights_path))
+    else:
+        init_weights(model, seed)
+    return model.eval().to(dev)
+
+
+def with_config(matcher: LoFTR, overrides: dict) -> LoFTR:
+    """A view of ``matcher`` sharing its parameters, with the model config
+    overridden (e.g. ``{"dtype": "bfloat16"}``)."""
+    from loftr_tpu_torch.config import _merge_dataclass
+    view = copy.copy(matcher)
+    view.config = _merge_dataclass(matcher.config, overrides)
+    return view
+
+
+def match_pair(img0, img1, matcher: LoFTR, dtype: str = "bfloat16",
+               use_pallas: bool = True, min_conf: float = 0.0):
+    """Match two grayscale images; the reference's 3-key output contract.
+
+    img0/img1: HxW (or HxWx1/x3) arrays, uint8 or float; H and W multiples
+    of 8.  Runs on the matcher's device.  Returns dict(mkpts0 [M,2],
+    mkpts1 [M,2], mconf [M]) as numpy, valid matches only, pixel (x, y).
+    """
+    dev = next(matcher.parameters()).device
+    model = with_config(matcher, {
+        "dtype": dtype,
+        "coarse": {"use_pallas": use_pallas},
+        "match_coarse": {"use_pallas": use_pallas},
+        "fine": {"use_pallas": use_pallas}})
+    inp = MatchInput(image0=torch.from_numpy(_to_gray_batch(img0)).to(dev),
+                     image1=torch.from_numpy(_to_gray_batch(img1)).to(dev))
+    out = model(inp)
+    valid = out.valid[0].cpu().numpy()
+    conf = out.coarse.mconf[0].float().cpu().numpy()
+    keep = valid & (conf >= min_conf)
+    return {
+        "mkpts0": out.mkpts0_f[0].float().cpu().numpy()[keep],
+        "mkpts1": out.mkpts1_f[0].float().cpu().numpy()[keep],
+        "mconf": conf[keep],
+    }

@@ -1,0 +1,203 @@
+"""LoFTR matcher, inference: the coarse-to-fine pipeline on PyTorch.
+
+Same stage order as ``loftr_tpu.models.matcher.LoFTR`` with ``train=False``
+(the reference's loftr.py:29-75):
+  [1] ResNet-FPN backbone (both images in one call when their shapes agree)
+  [2] position encoding + flatten to [B, L, C]
+  [3] coarse transformer (self/cross x4)          -> coarse-layer kernel
+  [4] dual-softmax + mutual-nearest candidates    -> dual-softmax kernel
+      then static top-K selection (K = min(max_matches, L))
+  [5] 5x5 fine windows at the matches + coarse-context concat
+  [6]+[7] fine transformer + soft-argmax          -> fine-stage kernel
+The ``use_pallas`` switches of ``cfg.coarse``, ``cfg.match_coarse`` and
+``cfg.fine`` choose the kernel module (True) or the plain PyTorch path.
+A kernel module runs its CUDA kernel on CUDA tensors and its plain version
+on CPU tensors.
+
+Submodule names follow the reference state_dict (``backbone``,
+``loftr_coarse``, ``fine_preprocess``, ``loftr_fine``).  Inference only:
+``forward`` runs without autograd.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn as nn
+
+from loftr_tpu_torch.config import ModelConfig
+from loftr_tpu_torch.models.backbone import build_backbone
+from loftr_tpu_torch.models.fused_coarse import fused_coarse_forward
+from loftr_tpu_torch.models.fused_fine import fused_fine_forward
+from loftr_tpu_torch.models.position_encoding import add_position_encoding
+from loftr_tpu_torch.models.transformer import (LocalFeatureTransformer,
+                                                apply_linear)
+from loftr_tpu_torch.ops import matching as M
+from loftr_tpu_torch.ops.fine_match import fine_kpts, fine_match
+from loftr_tpu_torch.ops.packing import pack_rows, unpack_rows
+from loftr_tpu_torch.ops.windows import gather_fine_windows_direct
+from loftr_tpu_torch.structs import CoarseMatches, MatchInput, MatchResult
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class FinePreprocess(nn.Module):
+    """Coarse-context projection and merge (the reference's
+    fine_preprocess.py)."""
+
+    def __init__(self, d_coarse: int, d_fine: int):
+        super().__init__()
+        self.down_proj = nn.Linear(d_coarse, d_fine, bias=True)
+        self.merge_feat = nn.Linear(2 * d_fine, d_fine, bias=True)
+
+
+class Features(NamedTuple):
+    feat_c0: torch.Tensor              # [B, L, C] after position encoding
+    feat_c1: torch.Tensor              # [B, S, C]
+    feat_f0: torch.Tensor              # [B, Hf, Wf, Cf]
+    feat_f1: torch.Tensor
+    mask_c0: Optional[torch.Tensor]    # [B, L]
+    mask_c1: Optional[torch.Tensor]
+
+
+class LoFTR(nn.Module):
+    """Detector-free matcher.  Call with a MatchInput; returns MatchResult."""
+
+    def __init__(self, config: ModelConfig):
+        super().__init__()
+        self.config = config
+        bb = config.backbone
+        self.backbone = build_backbone(bb.resolution, bb.initial_dim,
+                                       bb.block_dims, bb.norm)
+        c, f = config.coarse, config.fine
+        self.loftr_coarse = LocalFeatureTransformer(
+            c.d_model, c.nhead, c.layer_names, c.attention)
+        if f.concat_coarse_feat:
+            self.fine_preprocess = FinePreprocess(c.d_model, f.d_model)
+        self.loftr_fine = LocalFeatureTransformer(
+            f.d_model, f.nhead, f.layer_names, f.attention)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return DTYPES[self.config.dtype]
+
+    # -- stages, in order (separate so a caller can time each one) --------
+
+    def extract(self, inp: MatchInput) -> Features:
+        """[1] backbone + [2] position encoding and flatten."""
+        cfg = self.config
+        pk = cfg.batch_packing
+        dt = self.dtype
+        B = inp.image0.shape[0]
+        if inp.image0.shape == inp.image1.shape:
+            feat_c, feat_f = self.backbone(
+                pack_rows(inp.image0, inp.image1, pk), dt)
+            feat_c0, feat_c1 = unpack_rows(feat_c, pk)
+            feat_f0, feat_f1 = unpack_rows(feat_f, pk)
+        else:
+            feat_c0, feat_f0 = self.backbone(inp.image0, dt)
+            feat_c1, feat_f1 = self.backbone(inp.image1, dt)
+        tbf = cfg.coarse.temp_bug_fix
+        feat_c0 = add_position_encoding(feat_c0, tbf)
+        feat_c1 = add_position_encoding(feat_c1, tbf)
+        feat_c0 = feat_c0.reshape(B, -1, feat_c0.shape[-1])
+        feat_c1 = feat_c1.reshape(B, -1, feat_c1.shape[-1])
+        mask_c0 = None if inp.mask0 is None else inp.mask0.reshape(B, -1)
+        mask_c1 = None if inp.mask1 is None else inp.mask1.reshape(B, -1)
+        return Features(feat_c0, feat_c1, feat_f0.contiguous(),
+                        feat_f1.contiguous(), mask_c0, mask_c1)
+
+    def coarse(self, f: Features) -> Features:
+        """[3] coarse transformer."""
+        cfg = self.config
+        if cfg.coarse.use_pallas:
+            c0, c1 = fused_coarse_forward(self.loftr_coarse, f.feat_c0,
+                                          f.feat_c1, f.mask_c0, f.mask_c1,
+                                          cfg.batch_packing)
+        else:
+            c0, c1 = self.loftr_coarse(f.feat_c0, f.feat_c1, f.mask_c0,
+                                       f.mask_c1, cfg.batch_packing)
+        return f._replace(feat_c0=c0, feat_c1=c1)
+
+    def match(self, f: Features, inp: MatchInput):
+        """[4] coarse matching + top-K.  Returns (matches, conf or None)."""
+        cfg = self.config
+        mc = cfg.match_coarse
+        if mc.match_type != "dual_softmax":
+            raise NotImplementedError(
+                f"match_type {mc.match_type!r}: only dual_softmax is ported")
+        hw0_c, hw1_c = self._coarse_hw(inp)
+        conf = None
+        if mc.use_pallas:
+            cand = M.kernel_mutual_nearest_candidates(
+                f.feat_c0.contiguous(), f.feat_c1.contiguous(),
+                mc.dsmax_temperature, mc.thr, mc.border_rm, hw0_c, hw1_c,
+                inp.mask0, inp.mask1)
+        else:
+            conf = M.dual_softmax_conf(f.feat_c0, f.feat_c1,
+                                       mc.dsmax_temperature, f.mask_c0,
+                                       f.mask_c1)
+            cand = M.mutual_nearest_candidates(conf, mc.thr, mc.border_rm,
+                                               hw0_c, hw1_c, inp.mask0,
+                                               inp.mask1)
+        L = f.feat_c0.shape[1]
+        return M.topk_matches(cand, min(mc.max_matches, L)), conf
+
+    def fine(self, f: Features, matches: CoarseMatches,
+             inp: MatchInput) -> torch.Tensor:
+        """[5] fine windows + coarse context, [6]+[7] fine stage.
+        Returns expec_f [B, K, 3] float32."""
+        cfg = self.config
+        pk = cfg.batch_packing
+        hw0_c, hw1_c = self._coarse_hw(inp)
+        W = cfg.fine.window_size
+        stride = f.feat_f0.shape[1] // hw0_c[0]
+        win0 = gather_fine_windows_direct(f.feat_f0, matches.i_ids, hw0_c, W,
+                                          stride)
+        win1 = gather_fine_windows_direct(f.feat_f1, matches.j_ids, hw1_c, W,
+                                          stride)
+        B, K, ww, d_f = win0.shape
+        if cfg.fine.concat_coarse_feat:
+            d_c = f.feat_c0.shape[-1]
+            c0 = torch.gather(f.feat_c0, 1, matches.i_ids.long()[:, :, None]
+                              .expand(B, K, d_c))
+            c1 = torch.gather(f.feat_c1, 1, matches.j_ids.long()[:, :, None]
+                              .expand(B, K, d_c))
+            fp = self.fine_preprocess
+            cwin = apply_linear(fp.down_proj, pack_rows(c0, c1, pk))
+            c0w, c1w = unpack_rows(cwin, pk)
+            win0 = apply_linear(fp.merge_feat, torch.cat(
+                [win0, c0w[:, :, None, :].expand(B, K, ww, d_f)], dim=-1))
+            win1 = apply_linear(fp.merge_feat, torch.cat(
+                [win1, c1w[:, :, None, :].expand(B, K, ww, d_f)], dim=-1))
+        if cfg.fine.use_pallas:
+            return fused_fine_forward(self.loftr_fine, win0, win1)
+        f0, f1 = self.loftr_fine(win0.reshape(B * K, ww, d_f),
+                                 win1.reshape(B * K, ww, d_f),
+                                 batch_packing=pk)
+        return fine_match(f0.reshape(B, K, ww, d_f),
+                          f1.reshape(B, K, ww, d_f))
+
+    def _coarse_hw(self, inp: MatchInput):
+        r = self.config.backbone.resolution[0]
+        _, H0, W0, _ = inp.image0.shape
+        _, H1, W1, _ = inp.image1.shape
+        return (H0 // r, W0 // r), (H1 // r, W1 // r)
+
+    @torch.no_grad()
+    def forward(self, inp: MatchInput) -> MatchResult:
+        cfg = self.config
+        res_c, res_f = cfg.backbone.resolution
+        hw0_c, hw1_c = self._coarse_hw(inp)
+        feats = self.coarse(self.extract(inp))
+        matches, conf = self.match(feats, inp)
+        mkpts0_c, mkpts1_c = M.matches_to_kpts(matches, hw0_c, hw1_c, res_c,
+                                               inp.scale0, inp.scale1)
+        expec_f = self.fine(feats, matches, inp)
+        mkpts0_f, mkpts1_f = fine_kpts(expec_f, mkpts0_c, mkpts1_c,
+                                       cfg.fine.window_size, res_f,
+                                       inp.scale1)
+        return MatchResult(coarse=matches, mkpts0_c=mkpts0_c,
+                           mkpts1_c=mkpts1_c, mkpts0_f=mkpts0_f,
+                           mkpts1_f=mkpts1_f, expec_f=expec_f,
+                           conf_matrix=conf)
