@@ -1,22 +1,33 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``loftr_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 1,2,3,4] [--out FILE]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6] [--out FILE]
 
 Phases, each of which must pass (any failure exits non-zero):
   1. environment: card name and power limit, versions, kernel build time
      (the kernels build from ``loftr_tpu_torch/csrc`` at first use);
   2. each CUDA kernel against its plain PyTorch version on the card, at the
-     shapes of the indoor_ds 640x480 main path, in float32 and bfloat16;
-  3. the whole slice in float32, card (kernels) against CPU (plain paths);
+     shapes of the indoor_ds 640x480 main paths, in float32 and bfloat16
+     (the focal-loss kernels: sums and both gradients at B=2, the training
+     batch; the hybrid fine stage: its gradients against autograd of the
+     plain fine stage);
+  3. the inference slice in float32, card (kernels) against CPU (plain);
   4. the flagship indoor_ds preset in bfloat16 at 640x480: ``match_pair``
      at B=1 and the batched model call at B=8, timed with CUDA events, with
-     the per-stage split and peak memory.
-The main path (one ``match_pair`` call) runs with every kernel launch
-counter set to 0 just before it; the counts read just after it must show
-every kernel.  Results go to stdout one JSON object per line; the line
-before the last is the kernel summary, and the last line is the contract
-line ``{"ok": true, "device": {...}}``.  Without CUDA, or without the
+     the per-stage split and peak memory;
+  5. one float32 ``Trainer.train_step`` at indoor_ds width, 640x480, B=2:
+     card (kernels) against CPU (plain versions), same weights, batch and
+     selection noise;
+  6. the training main path in bfloat16: 8 ``Trainer.train_step`` calls on
+     one batch at B=2 (and B=4), then 5 more timed one by one with CUDA
+     events, the stage split and peak memory; the last loss of the 8 must
+     be finite and below the first.
+Each main path (one ``match_pair`` call; the 8 training steps) runs with
+every kernel launch counter set to 0 just before it; the counts read just
+after it must show every kernel of that path.  ``--phases 5,6`` runs only
+training.  Results go to stdout one JSON object per line; the line before
+the last is the kernel summary, and the last line is the contract line
+``{"ok": true, "device": {...}}``.  Without CUDA, or without the
 package beside this script, it exits with code 2 and prints no result.
 """
 from __future__ import annotations
@@ -33,8 +44,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit).  The
 # kernels' main-path inputs are bf16, so their operations count against the
-# bf16 tensor-core rate.
+# bf16 tensor-core rate; products with a float32 operand (the focal-loss
+# gradient products) count against the float32 rate outside the tensor cores.
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 H, W = 480, 640
@@ -158,7 +171,7 @@ def kernel_checks(dev, log, results):
     results["coarse_layer"] = dict(
         max_abs_err=errA[("self_B2", bf16)], ms=ms, plain_ms=plain,
         bound_ms=b, bound_by=by, library_ms=None,
-        shape="x=src [2,4800,256] bf16")
+        bound_unit="bf16 tensor cores", shape="x=src [2,4800,256] bf16")
 
     # ---- kernel B: dual softmax, L=S=4800, C=256 -------------------------
     f0 = rng.randn(1, L, C).astype(np.float32)
@@ -224,7 +237,8 @@ def kernel_checks(dev, log, results):
     b, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
     results["dual_softmax"] = dict(
         max_abs_err=errB[(False, bf16)], ms=ms, plain_ms=plain, bound_ms=b,
-        bound_by=by, library_ms=None, shape="f0=f1 [1,4800,256] bf16")
+        bound_by=by, library_ms=None, bound_unit="bf16 tensor cores",
+        shape="f0=f1 [1,4800,256] bf16")
 
     # ---- kernel C: fine stage, NB=1024, 25, C=128 ------------------------
     Cf, NB = 128, 1024
@@ -261,29 +275,260 @@ def kernel_checks(dev, log, results):
     b, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
     results["fine_stage"] = dict(
         max_abs_err=errC[bf16], ms=ms, plain_ms=plain, bound_ms=b,
-        bound_by=by, library_ms=None, shape="win0=win1 [1024,25,128] bf16")
+        bound_by=by, library_ms=None, bound_unit="bf16 tensor cores",
+        shape="win0=win1 [1024,25,128] bf16")
     for k, v in results.items():
         emit({"phase": 2, "kernel": k, "timing": v}, log)
 
 
-def reset_counts():
+def focal_case(rng, B, L, C, n_gt):
+    """Features at a scale where the confidences of interest lie inside the
+    clamp (1e-6, 1 - 1e-6): n_gt[b] planted correspondences in pair b (sim
+    about 6 against N(0, 0.4) for the rest), and at least 1500 planted
+    look-alikes that are not ground truth, so that negatives with a live
+    gradient exist (an unrelated cell's confidence, about 4e-8, is
+    clamped)."""
+    import numpy as np
+    n_gt = [n_gt] * B if isinstance(n_gt, int) else list(n_gt)
+    f0 = (rng.randn(B, L, C) * 0.77).astype(np.float32)
+    f1 = (rng.randn(B, L, C) * 0.77).astype(np.float32)
+    gt_j = np.zeros((B, L), np.int32)
+    gt_valid = np.zeros((B, L), bool)
+    n = 1500
+    for b in range(B):
+        ii, jj = rng.permutation(L)[:2 * n], rng.permutation(L)[:2 * n]
+        f1[b, jj] = f0[b, ii] + 0.1 * rng.randn(2 * n, C).astype(np.float32)
+        gt_j[b, ii[:n_gt[b]]] = jj[:n_gt[b]]
+        gt_valid[b, ii[:n_gt[b]]] = True
+    return f0, f1, gt_j, gt_valid
+
+
+def train_kernel_checks(dev, log, results):
+    """Kernel D (focal loss, forward and backward) and the hybrid fine
+    stage's backward, against their plain versions on the card."""
+    import numpy as np
+    import torch
+    from loftr_tpu_torch.models.fused_fine import encoder_weights
+    from loftr_tpu_torch.models.transformer import LoFTREncoderLayer
+    from loftr_tpu_torch.ops.fine_stage_hybrid import fused_fine_stage_hybrid
+    from loftr_tpu_torch.ops.kernels import fine_stage as KC
+    from loftr_tpu_torch.ops.kernels import focal_loss as KD
+    from loftr_tpu_torch.utils.weights import init_weights
+
+    rng = np.random.RandomState(7)
+    f32, bf16 = torch.float32, torch.bfloat16
+    C, L = 256, (H // 8) * (W // 8)
+    # the checks run at B=2, the training main path's batch, with another
+    # ground truth, mask and cotangent in each pair, so that every per-pair
+    # offset in the kernels is held against the plain version
+    B = 2
+    masks = (rng.rand(B, L) > 0.1, rng.rand(B, L) > 0.1)
+    # tolerances.  Sums: the kernel adds 23 million float terms in another
+    # order than torch.sum, and a term near conf = 1 carries log1p(-c)
+    # with the float rounding of c: 2e-4 relative.  Gradients, float32:
+    # 1e-3 of the entry (the bar of the JAX kernels against jax.grad) plus
+    # 1e-3 of the largest entry of that pair's gradient (sums of 4800 float
+    # products in another order).  bfloat16: both versions round the float
+    # gradient to bfloat16 at the end, so entries may differ by one ulp
+    # (2^-8).
+    tol_sum = 2e-4
+    tol_grad = {f32: (1e-3, 1e-3), bf16: (8e-3, 2e-3)}
+    errD = {}
+    for name, n_gt, masked in (("plain", (1500, 900), False),
+                               ("masked", (1500, 900), True),
+                               ("no_positives", (0, 0), False),
+                               ("one_pair_without_positives", (0, 1500),
+                                False)):
+        f0, f1, gt_j, gt_valid = focal_case(rng, B, L, C, n_gt)
+        gj = torch.from_numpy(gt_j).to(dev)
+        gv = torch.from_numpy(gt_valid).to(dev)
+        m0 = torch.from_numpy(masks[0]).to(dev) if masked else None
+        m1 = torch.from_numpy(masks[1]).to(dev) if masked else None
+        count = gt_valid.sum(1)
+        # cotangents, one pair of them per image pair: the loss's own
+        # (1/n_pos, 1/n_neg), where the positives dominate, scaled apart
+        # between the pairs; and the negatives alone
+        c_pos = torch.tensor([1.0, 0.5], device=dev) / torch.from_numpy(
+            np.maximum(count, 1)).to(dev)
+        c_neg = torch.tensor([1.0, 2.0], device=dev) / torch.from_numpy(
+            L * L - count).to(dev)
+        c_neg_only = torch.tensor([1.0, 3.0], device=dev)
+        has_pos = torch.from_numpy(count > 0).to(dev)
+        for dt in (f32, bf16):
+            out = {}
+            for which, fn in (("kernel", KD.fused_focal_sums),
+                              ("plain", KD.focal_sums_plain)):
+                a = torch.from_numpy(f0).to(dev, dt).requires_grad_(True)
+                b = torch.from_numpy(f1).to(dev, dt).requires_grad_(True)
+                p, n = fn(a, b, gj, gv, m0, m1, 0.1, 0.25, 2.0)
+                g_loss = torch.autograd.grad(
+                    (p * c_pos).sum() + (n * c_neg).sum(), (a, b),
+                    retain_graph=True)
+                g_neg = torch.autograd.grad((n * c_neg_only).sum(), (a, b))
+                # [2B, L, C]: per image pair, the loss's gradient, then
+                # the negatives-only gradient
+                out[which] = (p.detach(), n.detach(),
+                              torch.cat([g_loss[0], g_neg[0]]),
+                              torch.cat([g_loss[1], g_neg[1]]))
+                del a, b, p, n, g_loss, g_neg
+            torch.cuda.synchronize()
+            (kp, kn, ka, kb), (pp, pn, pa, pb) = out["kernel"], out["plain"]
+
+            def rel(x, y):    # per image pair, the worst
+                return float(((x - y).abs() / y.abs().clamp_min(1e-30)).max())
+            rtol, ftol = tol_grad[dt]
+
+            def grad_ok(x, y):
+                # each pair's gradient under each cotangent against its
+                # own largest entry
+                return all(bool(((u - v).abs() <= rtol * v.abs()
+                                 + ftol * v.abs().max()).all())
+                           for u, v in zip(x.float(), y.float()))
+
+            def gerr(x, y, sl):
+                return float((x.float() - y.float())[sl].abs().max())
+            pos_err = rel(kp[has_pos], pp[has_pos]) if bool(has_pos.any()) \
+                else 0.0
+            ok = (rel(kn, pn) <= tol_sum and pos_err <= tol_sum
+                  and bool((kp[~has_pos] == 0).all())
+                  and bool((pp[~has_pos] == 0).all())
+                  and grad_ok(ka, pa) and grad_ok(kb, pb)
+                  and bool(torch.isfinite(ka.float()).all())
+                  and bool(torch.isfinite(kb.float()).all()))
+            lo, hi = slice(0, B), slice(B, 2 * B)
+            rec = {"phase": 2, "kernel": "focal_loss", "case": name,
+                   "batch": B, "n_gt": list(n_gt),
+                   "dtype": str(dt)[6:], "pos": kp.tolist(),
+                   "neg": kn.tolist(), "pos_rel_err": pos_err,
+                   "neg_rel_err": rel(kn, pn),
+                   "dfeat0_max_abs_err": gerr(ka, pa, lo),
+                   "dfeat0_max_abs": float(pa.float()[lo].abs().max()),
+                   "dfeat1_max_abs_err": gerr(kb, pb, lo),
+                   "dfeat1_max_abs": float(pb.float()[lo].abs().max()),
+                   "neg_only_dfeat0_max_abs_err": gerr(ka, pa, hi),
+                   "neg_only_dfeat0_max_abs": float(
+                       pa.float()[hi].abs().max()),
+                   "neg_only_dfeat1_max_abs_err": gerr(kb, pb, hi),
+                   "neg_only_dfeat1_max_abs": float(
+                       pb.float()[hi].abs().max()),
+                   "sum_rtol": tol_sum, "grad_rtol": rtol,
+                   "grad_tol_of_max": ftol, "ok": ok}
+            emit(rec, log)
+            check(ok, f"focal_loss {name} {dt} disagrees: {rec}")
+            errD[(name, dt)] = max(rec["dfeat0_max_abs_err"],
+                                   rec["dfeat1_max_abs_err"])
+            del out, ka, kb, pa, pb
+    # timing and peak memory, bf16, B=1 (one pair)
+    f0, f1, gt_j, gt_valid = focal_case(rng, 1, L, C, 1500)
+    a = torch.from_numpy(f0).to(dev, bf16).requires_grad_(True)
+    b = torch.from_numpy(f1).to(dev, bf16).requires_grad_(True)
+    gj = torch.from_numpy(gt_j).to(dev)
+    gv = torch.from_numpy(gt_valid).to(dev)
+
+    def fwd(fn):
+        with torch.no_grad():
+            return fn(a, b, gj, gv)
+
+    def fwd_bwd(fn):
+        p, n = fn(a, b, gj, gv)
+        torch.autograd.grad(p.sum() + n.sum(), (a, b))
+
+    times, mem = {}, {}
+    for which, fn in (("kernel", KD.fused_focal_sums),
+                      ("plain", KD.focal_sums_plain)):
+        it = 10 if which == "kernel" else 5
+        times[which] = (cuda_ms(lambda: fwd(fn), iters=it),
+                        cuda_ms(lambda: fwd_bwd(fn), iters=it))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fwd_bwd(fn)
+        torch.cuda.synchronize()
+        mem[which] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    sim = 2 * L * L * C
+    # forward: two passes of sim tiles.  backward: three more (B1 and the
+    # two B2 grids), on the tensor cores in bf16, plus the two float32
+    # gradient products.  Bytes: features in twice, gradients out.
+    t_ops = (5 * sim / PEAK_BF16_FLOPS + 2 * sim / PEAK_F32_FLOPS) * 1e3
+    t_bytes = (2 * 2 * L * C * 2 + 2 * L * C * 2) / PEAK_BYTES * 1e3
+    results["focal_loss"] = dict(
+        max_abs_err=errD[("plain", bf16)], ms=times["kernel"][1],
+        plain_ms=times["plain"][1], bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        library_ms=None,
+        bound_unit="sim tiles (5 x 2LSC) at the bf16 tensor-core rate, "
+                   "gradient products (2 x 2LSC) at the float32 rate",
+        bound_ms_all_bf16=7 * sim / PEAK_BF16_FLOPS * 1e3,
+        ms_forward=times["kernel"][0],
+        ms_backward=times["kernel"][1] - times["kernel"][0],
+        plain_ms_forward=times["plain"][0],
+        bound_ms_forward=2 * sim / PEAK_BF16_FLOPS * 1e3,
+        peak_mem_MiB=mem["kernel"], plain_peak_mem_MiB=mem["plain"],
+        shape="f0=f1 [1,4800,256] bf16, forward + backward "
+              "(checked at [2,4800,256])")
+    emit({"phase": 2, "kernel": "focal_loss",
+          "timing": results["focal_loss"]}, log)
+
+    # ---- hybrid fine stage: kernel C forward, recomputed plain backward --
+    Cf, NB = 128, 256
+    layers = [encoder_weights(init_weights(LoFTREncoderLayer(Cf, 8), s)
+                              .to(dev)) for s in (2, 3)]
+    w0 = rng.randn(NB, 25, Cf).astype(np.float32) * 0.5
+    w1 = rng.randn(NB, 25, Cf).astype(np.float32) * 0.5
+    g_out = torch.from_numpy(rng.randn(NB, 3).astype(np.float32)).to(dev)
+    for dt, tol in ((f32, 2e-4), (bf16, 5e-2)):
+        res = {}
+        for which, fn in (("hybrid", fused_fine_stage_hybrid),
+                          ("plain", KC.fine_stage_plain)):
+            x0 = torch.from_numpy(w0).to(dev, dt).requires_grad_(True)
+            x1 = torch.from_numpy(w1).to(dev, dt).requires_grad_(True)
+            ws = [KC.EncoderWeights(*[t.detach().clone().requires_grad_(True)
+                                      for t in l]) for l in layers]
+            n0 = KC.fused_fine_stage.launches
+            out = fn(x0, x1, ws[0], ws[1], 8)
+            launched = KC.fused_fine_stage.launches - n0
+            grads = torch.autograd.grad((out * g_out).sum(),
+                                        [x0, x1, *ws[0], *ws[1]])
+            res[which] = (out.detach(), grads, launched)
+        torch.cuda.synchronize()
+        (ho, hg, hl), (po, pg, _) = res["hybrid"], res["plain"]
+        # the backward is autograd of the same plain function on the same
+        # inputs, with the same cotangent: equal up to the order of
+        # atomics in PyTorch's own backward kernels
+        gerr = max(float((x.float() - y.float()).abs().max()
+                         / y.float().abs().max().clamp_min(1e-30))
+                   for x, y in zip(hg, pg))
+        ferr = float((ho - po).abs().max())
+        ok = hl == 1 and gerr <= 1e-3 and ferr <= tol * (1 + float(
+            po.abs().max()))
+        rec = {"phase": 2, "kernel": "fine_stage_hybrid",
+               "dtype": str(dt)[6:], "forward_launches": hl,
+               "forward_max_abs_err": ferr, "forward_tol": tol,
+               "grad_max_rel_err": gerr, "grad_tol": 1e-3, "ok": ok}
+        emit(rec, log)
+        check(ok, f"hybrid fine stage disagrees: {rec}")
+
+
+def _counters():
     from loftr_tpu_torch.ops.kernels.coarse_layer import fused_coarse_layer
     from loftr_tpu_torch.ops.kernels.dual_softmax import \
         fused_dual_softmax_match
     from loftr_tpu_torch.ops.kernels.fine_stage import fused_fine_stage
-    for fn in (fused_coarse_layer, fused_dual_softmax_match,
-               fused_fine_stage):
-        fn.launches = 0
+    from loftr_tpu_torch.ops.kernels.focal_loss import fused_focal_sums
+    return {"coarse_layer": (fused_coarse_layer, "launches"),
+            "dual_softmax": (fused_dual_softmax_match, "launches"),
+            "fine_stage": (fused_fine_stage, "launches"),
+            "focal_loss_forward": (fused_focal_sums, "launches"),
+            "focal_loss_backward": (fused_focal_sums, "backward_launches")}
+
+
+def reset_counts():
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_counts():
-    from loftr_tpu_torch.ops.kernels.coarse_layer import fused_coarse_layer
-    from loftr_tpu_torch.ops.kernels.dual_softmax import \
-        fused_dual_softmax_match
-    from loftr_tpu_torch.ops.kernels.fine_stage import fused_fine_stage
-    return {"coarse_layer": fused_coarse_layer.launches,
-            "dual_softmax": fused_dual_softmax_match.launches,
-            "fine_stage": fused_fine_stage.launches}
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
 
 
 def images(seed, batch=1):
@@ -326,7 +571,8 @@ def slice_fp32(dev, log):
     torch.cuda.synchronize()
     counts = read_counts()
     emit({"phase": 3, "launches_one_forward": counts}, log)
-    check(counts == {"coarse_layer": 12, "dual_softmax": 1, "fine_stage": 1},
+    check(counts == {"coarse_layer": 12, "dual_softmax": 1, "fine_stage": 1,
+                     "focal_loss_forward": 0, "focal_loss_backward": 0},
           f"unexpected launch counts {counts}")
     t0 = time.perf_counter()
     out_c = cpu_model(inp_c)
@@ -385,7 +631,8 @@ def flagship_bf16(dev, log):
     emit({"phase": 4, "main_path": "match_pair indoor_ds bf16 640x480",
           "launches": main_counts, "n_matches": int(out["mconf"].shape[0])},
          log)
-    check(all(v > 0 for v in main_counts.values()),
+    check(all(main_counts[k] > 0 for k in ("coarse_layer", "dual_softmax",
+                                           "fine_stage")),
           f"a kernel of the main path did not launch: {main_counts}")
 
     t_mp = cuda_ms(lambda: match_pair(img0, img1, matcher), iters=10)
@@ -422,9 +669,244 @@ def flagship_bf16(dev, log):
     return main_counts
 
 
+# --------------------------------------------------------------------------
+# phases 5 and 6: training
+# --------------------------------------------------------------------------
+
+def train_batch(seed, batch):
+    """A seeded training batch: random images, depth in [1, 3], identity
+    pose and a pinhole K, so the coarse ground truth is the diagonal."""
+    import numpy as np
+    import torch
+    from loftr_tpu_torch.structs import MatchInput
+    rng = np.random.RandomState(seed)
+    K = np.array([[[500.0, 0, W / 2], [0, 500.0, H / 2], [0, 0, 1]]] * batch,
+                 np.float32)
+    T = np.tile(np.eye(4, dtype=np.float32), (batch, 1, 1))
+    t = torch.from_numpy
+    return MatchInput(
+        image0=t(rng.rand(batch, H, W, 1).astype(np.float32)),
+        image1=t(rng.rand(batch, H, W, 1).astype(np.float32)),
+        depth0=t((rng.rand(batch, H, W) * 2 + 1).astype(np.float32)),
+        depth1=t((rng.rand(batch, H, W) * 2 + 1).astype(np.float32)),
+        T_0to1=t(T), T_1to0=t(T.copy()), K0=t(K), K1=t(K.copy()))
+
+
+def train_config(dtype, batch):
+    """indoor_ds at its published widths; the schedule is cut to a constant
+    1e-3 (no warm-up, no epochs) so that a few steps move the loss."""
+    from loftr_tpu_torch.config import get_config
+    return get_config("indoor_ds", {
+        "loftr": {"dtype": dtype},
+        "trainer": {"canonical_lr": 1e-3, "canonical_bs": batch,
+                    "warmup_step": 0, "scheduler_interval": "step",
+                    "mslr_milestones": (10 ** 9,)}})
+
+
+def train_step_fp32(dev, log):
+    """Phase 5: one float32 train step, card (kernels) against CPU (plain
+    versions), from the same weights, batch and selection noise."""
+    import torch
+    from loftr_tpu_torch.ops.matching import draw_select_noise
+    from loftr_tpu_torch.train.trainer import Trainer
+
+    B = 2
+    cfg = train_config("float32", B)
+    batch = train_batch(5, B)
+    L = (H // 8) * (W // 8)
+    mc = cfg.loftr.match_coarse
+    k_train = mc.train_matches or int(mc.train_coarse_percent * L)
+    noise = draw_select_noise(B, L, k_train, mc.train_sampling,
+                              torch.Generator().manual_seed(5), "cpu")
+    out = {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        trainer = Trainer(cfg, batch_size_per_device=B, device=device)
+        state = trainer.init_state(seed=0)
+        before = {k: v.detach().cpu().clone()
+                  for k, v in state.module.state_dict().items()}
+        reset_counts()
+        t0 = time.perf_counter()
+        state, sc = trainer.train_step(
+            state, batch, {k: v.to(device) for k, v in noise.items()})
+        if name == "card":
+            torch.cuda.synchronize()
+        out[name] = dict(
+            scalars={k: float(v) for k, v in sc.items()},
+            seconds=time.perf_counter() - t0, counts=read_counts(),
+            before=before,
+            after={k: v.detach().cpu() for k, v in
+                   state.module.state_dict().items()})
+        del state, trainer
+    card, cpu = out["card"], out["cpu"]
+    check(card["counts"] == {"coarse_layer": 0, "dual_softmax": 1,
+                             "fine_stage": 0, "focal_loss_forward": 1,
+                             "focal_loss_backward": 1},
+          f"unexpected launch counts in a train step: {card['counts']}")
+    check(sum(cpu["counts"].values()) == 0, "the CPU step launched a kernel")
+    lr = card["scalars"]["lr"]
+    rel = {k: abs(card["scalars"][k] - cpu["scalars"][k])
+           / max(abs(cpu["scalars"][k]), 1e-30)
+           for k in ("loss", "loss_c", "loss_f", "grad_norm")}
+    # parameters: Adam's first step moves an element by lr * sign(g), so
+    # an element whose gradient is rounding noise may differ by 2 lr;
+    # all others agree far below one lr.  Running statistics: float32
+    # means of the same activations and of their squares.
+    worst, n_far, n_all, stat_err, stat_key = 0.0, 0, 0, 0.0, None
+    moved = 0.0
+    for k, a in card["after"].items():
+        b = cpu["after"][k]
+        if k.endswith("num_batches_tracked"):
+            continue
+        d = (a - b).abs()
+        if k.endswith(("running_mean", "running_var")):
+            # this step's batch statistics, recovered from the running
+            # ones.  The variance is E[x^2] - E[x]^2 in float32, so what
+            # the two devices' sums carry is the second moment: errors
+            # are taken against it (the mean against its square root).
+            base = k.rsplit(".", 1)[0]
+            mom = 0.1
+            bm, bv = ((cpu["after"][base + "." + s_] - (1 - mom)
+                       * cpu["before"][base + "." + s_]) / mom
+                      for s_ in ("running_mean", "running_var"))
+            m2 = bv + bm * bm
+            scale = m2 if k.endswith("running_var") else m2.sqrt()
+            e = float((d / mom / scale.clamp_min(1e-12)).max())
+            if e > stat_err:
+                stat_err, stat_key = e, k
+            continue
+        worst = max(worst, float(d.max()))
+        n_far += int((d > 0.5 * lr).sum())
+        n_all += d.numel()
+        moved = max(moved, float((a - card["before"][k]).abs().max()))
+    rec = {"phase": 5, "scalars_card": card["scalars"],
+           "scalars_cpu": cpu["scalars"], "rel_err": rel,
+           "param_max_abs_diff": worst, "lr": lr,
+           "param_frac_beyond_half_lr": n_far / n_all,
+           "param_max_update": moved, "running_stat_max_rel_err": stat_err,
+           "running_stat_worst": stat_key,
+           "card_step_s": card["seconds"], "cpu_step_s": cpu["seconds"],
+           "launches": card["counts"]}
+    # tolerances: the losses are means over millions of float terms in
+    # another order (1e-3); the gradient norm also carries ReLU-mask flips
+    # between two float32 convolution libraries (2e-2)
+    rec["ok"] = (rel["loss"] <= 1e-3 and rel["loss_c"] <= 1e-3
+                 and rel["loss_f"] <= 1e-3 and rel["grad_norm"] <= 2e-2
+                 and worst <= 2.2 * lr and n_far / n_all <= 0.05
+                 and moved >= 0.5 * lr and stat_err <= 1e-3)
+    emit(rec, log)
+    check(rec["ok"], f"fp32 train step: card and CPU disagree: {rec}")
+
+
+def train_bf16(dev, log, steps=8):
+    """Phase 6: the training main path, ``Trainer.train_step`` in
+    bfloat16.  Returns the launch counts of the B=2 run."""
+    import math
+    import torch
+    from loftr_tpu_torch.losses import loftr_loss
+    from loftr_tpu_torch.supervision import (coarse_supervision,
+                                             fine_supervision)
+    from loftr_tpu_torch.train.trainer import Trainer
+
+    main_counts = None
+    for B in (2, 4):
+        cfg = train_config("bfloat16", B)
+        trainer = Trainer(cfg, batch_size_per_device=B, device=dev)
+        state = trainer.init_state(seed=0)
+        batch = train_batch(6, B).to(dev)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        reset_counts()
+        losses = []
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            state, sc = trainer.train_step(state, batch)
+            losses.append(sc)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        scal = [{k: float(v) for k, v in s.items()} for s in losses]
+        check(counts == {"coarse_layer": 0, "dual_softmax": steps,
+                         "fine_stage": 0, "focal_loss_forward": steps,
+                         "focal_loss_backward": steps},
+              f"kernels not launched once a step: {counts}")
+        check(all(math.isfinite(v) for s in scal for v in s.values()),
+              f"non-finite training scalars: {scal}")
+        check(scal[-1]["loss"] < scal[0]["loss"],
+              f"the loss did not fall: {[s['loss'] for s in scal]}")
+        check(all(p.dtype == torch.float32
+                  for p in state.module.parameters()),
+              "parameters must stay float32")
+        if B == 2:
+            main_counts = counts
+
+        # steady-state time of the entry point itself, by CUDA events
+        # around each of 5 further Trainer.train_step calls (the 8 steps
+        # above have warmed the allocator and the convolution algorithms)
+        timed = 5
+        tev = [torch.cuda.Event(enable_timing=True) for _ in range(timed + 1)]
+        state, _ = trainer.train_step(state, batch)
+        tev[0].record()
+        for i in range(timed):
+            state, _ = trainer.train_step(state, batch)
+            tev[i + 1].record()
+        torch.cuda.synchronize()
+        per_step = [tev[i].elapsed_time(tev[i + 1]) for i in range(timed)]
+        step_ms = sum(per_step) / timed
+
+        # the per-stage breakdown: the step's stages written out one by
+        # one with an event between them.  It is not the entry point: it
+        # leaves out train_step's batch.to, the zero fill of unused
+        # gradients and the grad_norm scalar, so its sum is reported beside
+        # ms_per_step, not in its place.
+        ev = [[torch.cuda.Event(enable_timing=True) for _ in range(6)]
+              for _ in range(4)]
+        res_c, res_f = cfg.loftr.backbone.resolution
+        for e in ev:
+            e[0].record()
+            model = state.module.train()
+            spv = coarse_supervision(batch, res_c)
+            e[1].record()
+            out = model(batch, train=True, generator=state.generator,
+                        gt_j=spv.gt_j, gt_valid=spv.gt_valid)
+            e[2].record()
+            gt = fine_supervision(spv, out.coarse, batch, res_f,
+                                  cfg.loftr.fine.window_size)
+            loss, _ = loftr_loss(out, spv, gt, batch, cfg.loftr.loss,
+                                 cfg.loftr.match_coarse)
+            e[3].record()
+            grads = list(torch.autograd.grad(
+                loss, list(model.parameters())))
+            e[4].record()
+            trainer.apply_gradients(state, grads)
+            e[5].record()
+        torch.cuda.synchronize()
+        split = [sum(e[i].elapsed_time(e[i + 1]) for e in ev[1:]) / 3
+                 for i in range(5)]
+        rec = {"phase": 6, "main_path": "Trainer.train_step indoor_ds bf16 "
+               "640x480", "batch": B, "steps": steps,
+               "loss": [s["loss"] for s in scal],
+               "loss_c": [scal[0]["loss_c"], scal[-1]["loss_c"]],
+               "loss_f": [scal[0]["loss_f"], scal[-1]["loss_f"]],
+               "grad_norm": [scal[0]["grad_norm"], scal[-1]["grad_norm"]],
+               "lr": scal[-1]["lr"], "launches": counts,
+               "ms_per_step_first_steps_wall": wall,
+               "ms_per_step": step_ms, "ms_each_timed_step": per_step,
+               "pairs_per_s": 1000.0 * B / step_ms,
+               "stages_sum_ms": sum(split),
+               "step_minus_stages_ms": step_ms - sum(split),
+               "supervision_ms": split[0], "forward_ms": split[1],
+               "loss_ms": split[2], "backward_ms": split[3],
+               "optimizer_ms": split[4], "peak_mem_MiB": peak}
+        emit(rec, log)
+        del state, trainer, batch, out, loss, grads
+        torch.cuda.empty_cache()
+    return main_counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4")
+    ap.add_argument("--phases", default="1,2,3,4,5,6")
     ap.add_argument("--out", default=None,
                     help="also append the JSON lines to this file")
     args = ap.parse_args(argv)
@@ -463,30 +945,56 @@ def main(argv=None):
               "tf32": "cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False"},
              log)
         results = {}
-        torch.set_grad_enabled(False)  # inference only
+        main_counts = train_counts = None
+        with torch.no_grad():  # the inference phases carry no graph
+            if 2 in phases:
+                kernel_checks(dev, log, results)
+            if 3 in phases:
+                slice_fp32(dev, log)
+            if 4 in phases:
+                main_counts = flagship_bf16(dev, log)
         if 2 in phases:
-            kernel_checks(dev, log, results)
-        if 3 in phases:
-            slice_fp32(dev, log)
-        main_counts = None
-        if 4 in phases:
-            main_counts = flagship_bf16(dev, log)
-        if results and main_counts is not None:
+            train_kernel_checks(dev, log, results)
+        if 5 in phases:
+            train_step_fp32(dev, log)
+        if 6 in phases:
+            train_counts = train_bf16(dev, log)
+        if results and main_counts is not None and train_counts is not None:
             src = {"coarse_layer": ("loftr_tpu_torch/csrc/coarse_layer.cu",
                                     "loftr_tpu/ops/pallas/coarse_layer.py:117"),
                    "dual_softmax": ("loftr_tpu_torch/csrc/dual_softmax.cu",
                                     "loftr_tpu/ops/pallas/dual_softmax.py:132"),
                    "fine_stage": ("loftr_tpu_torch/csrc/fine_stage.cu",
-                                  "loftr_tpu/ops/pallas/fine_stage.py:263")}
+                                  "loftr_tpu/ops/pallas/fine_stage.py:263"),
+                   "focal_loss": ("loftr_tpu_torch/csrc/focal_loss.cu",
+                                  "loftr_tpu/ops/pallas/focal_loss.py:230")}
+            # launches: kernels A, B, C in one match_pair call; kernel D
+            # (forward + backward) in the 8 training steps, where kernel B
+            # also runs once a step
+            launches = dict(main_counts)
+            launches["focal_loss"] = (train_counts["focal_loss_forward"]
+                                      + train_counts["focal_loss_backward"])
+            extra = {"dual_softmax": {
+                         "train_launches": train_counts["dual_softmax"]},
+                     "focal_loss": {
+                         "launches_forward":
+                             train_counts["focal_loss_forward"],
+                         "launches_backward":
+                             train_counts["focal_loss_backward"]}}
             kernels = []
             for name, r in results.items():
                 kernels.append({
                     "name": name, "route": "cuda", "source": src[name][0],
-                    "replaces": src[name][1],
-                    "launches": main_counts[name],
+                    "replaces": src[name][1], "launches": launches[name],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                    "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                    "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                    "bound_unit": r["bound_unit"], **extra.get(name, {}),
+                    **{k: r[k] for k in ("ms_forward", "ms_backward",
+                                         "peak_mem_MiB", "plain_peak_mem_MiB")
+                       if k in r}})
+            check(all(k["launches"] > 0 for k in kernels),
+                  f"a kernel was launched no time on its main path: {kernels}")
             print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),

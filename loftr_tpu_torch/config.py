@@ -3,12 +3,13 @@
 A copy of ``loftr_tpu.config`` (the port never imports the JAX package):
 the same frozen dataclasses, field names, defaults and named presets, so a
 preset here equals its JAX counterpart field by field.  Fields that only
-steer TPU code paths (``winograd``, ``fused_heads``, ``seq_axis``,
-``win_pack``, ``use_pallas_train``, ``gather``, ``batch_packing`` modes,
-the loss switches) are kept as inert fields for that comparison.
+steer TPU code paths (``winograd``, ``seq_axis``, ``win_pack``,
+``loss.force_pallas_cpu``) are kept as inert fields for that comparison.
 
 ``use_pallas`` keeps its name: in the port it selects the hand-written
-CUDA kernel module (``ops/kernels/``) instead of the plain PyTorch path.
+CUDA kernel module (``ops/kernels/``) instead of the plain PyTorch path
+(``loss.use_pallas``: the fused focal loss; ``fine.use_pallas_train``: the
+hybrid fine stage in training).
 
 Precedence: defaults -> preset -> nested-dict overrides, last wins
 (``Config.replaced``), as in the reference's yacs merge order.
@@ -194,6 +195,16 @@ class Config:
         if kw:
             cfg = _merge_dataclass(cfg, kw)
         return cfg
+
+    def scaled_lr(self, world_size: int, batch_size_per_device: int) -> tuple:
+        """Linear LR scaling rule (the reference's train.py:70-77); the
+        effective batch includes gradient accumulation.
+        Returns (true_lr, warmup_step_scaled)."""
+        true_bs = (world_size * batch_size_per_device
+                   * max(1, self.trainer.accum_steps))
+        scaling = true_bs / self.trainer.canonical_bs
+        return self.trainer.canonical_lr * scaling, int(
+            self.trainer.warmup_step / max(scaling, 1e-12))
 
 
 # ---------------------------------------------------------------------------

@@ -23,19 +23,11 @@
 // softmax statistics, max with the lowest index on ties for the row best).
 // No float atomics, so results are deterministic.
 
-#include "common.cuh"
+#include "sim_tile.cuh"
 
 namespace loftr {
 namespace {
 
-constexpr int kTM = 64, kTN = 64, kTK = 32;
-constexpr int kLdh = kTK + 8;   // bf16 slab row stride (WMMA: multiple of 8)
-constexpr int kLds = kTN + 4;   // float sim tile row stride
-constexpr size_t kFloatSlabs = 2 * kTK * (kTM + 1) * sizeof(float);
-constexpr size_t kHalfSlabs = 2 * kTM * kLdh * sizeof(__nv_bfloat16) +
-                              kTM * kLds * sizeof(float);
-constexpr size_t kTileBytes = kFloatSlabs > kHalfSlabs ? kFloatSlabs
-                                                       : kHalfSlabs;
 constexpr float kBig = 1e9f;
 
 template <typename T, int MODE>
@@ -47,15 +39,7 @@ __global__ void __launch_bounds__(kThreads)
                 float* __restrict__ row_pa, float* __restrict__ row_pb,
                 float* __restrict__ col_pa, float* __restrict__ col_pb, int L,
                 int S, int C, int chunk_tiles, float scale) {
-  constexpr bool kTC = std::is_same<T, __nv_bfloat16>::value;
-  // float path: k-slabs As/Bs [kTK][64+1]; bf16 path: bf16 slabs A16/B16
-  // [64][kLdh] and the float sim tile Ssim [64][kLds] from the tensor cores
   __shared__ __align__(128) unsigned char tile_smem[kTileBytes];
-  float(*As)[kTM + 1] = reinterpret_cast<float(*)[kTM + 1]>(tile_smem);
-  float(*Bs)[kTN + 1] = As + kTK;
-  __nv_bfloat16* A16 = reinterpret_cast<__nv_bfloat16*>(tile_smem);
-  __nv_bfloat16* B16 = A16 + kTM * kLdh;
-  float* Ssim = reinterpret_cast<float*>(B16 + kTN * kLdh);
   __shared__ float red_a[16][kTN];
   __shared__ float red_b[16][kTN];
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
@@ -92,77 +76,7 @@ __global__ void __launch_bounds__(kThreads)
     const int j0 = ct * kTN;
     if (j0 >= S) break;
     float acc[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
-    if constexpr (kTC) {
-      // warp w: 16-row tile w/2, 16-column tiles 2*(w%2) and 2*(w%2)+1
-      using namespace nvcuda;
-      const int warp = tid >> 5, mi = warp >> 1, nj = (warp & 1) * 2;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> fr[2];
-      wmma::fill_fragment(fr[0], 0.f);
-      wmma::fill_fragment(fr[1], 0.f);
-      for (int k0 = 0; k0 < C; k0 += kTK) {
-        for (int e = tid; e < kTM * kTK; e += kThreads) {
-          const int r = e / kTK, k = e % kTK;
-          const int gi = i0 + r, gj = j0 + r, gk = k0 + k;
-          const __nv_bfloat16 z = __float2bfloat16(0.f);
-          A16[r * kLdh + k] = (gi < L && gk < C) ? f0b[(size_t)gi * C + gk] : z;
-          B16[r * kLdh + k] = (gj < S && gk < C) ? f1b[(size_t)gj * C + gk] : z;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < kTK; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> fa;
-          wmma::load_matrix_sync(fa, A16 + mi * 16 * kLdh + kk, kLdh);
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            // sim = f0 . f1^T: f1 rows are the columns of B (col-major)
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                           wmma::col_major> fb;
-            wmma::load_matrix_sync(fb, B16 + (nj + j) * 16 * kLdh + kk, kLdh);
-            wmma::mma_sync(fr[j], fa, fb, fr[j]);
-          }
-        }
-        __syncthreads();
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(Ssim + mi * 16 * kLds + (nj + j) * 16, fr[j],
-                                kLds, wmma::mem_row_major);
-      __syncthreads();
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          acc[a][c] = Ssim[(ty + 16 * a) * kLds + tx + 16 * c];
-    } else {
-      for (int k0 = 0; k0 < C; k0 += kTK) {
-        for (int e = tid; e < kTM * kTK; e += kThreads) {
-          const int r = e / kTK, k = e % kTK;
-          const int gi = i0 + r, gj = j0 + r, gk = k0 + k;
-          As[k][r] = (gi < L && gk < C) ? to_f(f0b[(size_t)gi * C + gk]) : 0.f;
-          Bs[k][r] = (gj < S && gk < C) ? to_f(f1b[(size_t)gj * C + gk]) : 0.f;
-        }
-        __syncthreads();
-#pragma unroll 8
-        for (int k = 0; k < kTK; ++k) {
-          float av[4], bv[4];
-#pragma unroll
-          for (int a = 0; a < 4; ++a) av[a] = As[k][ty + 16 * a];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) bv[c] = Bs[k][tx + 16 * c];
-#pragma unroll
-          for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int c = 0; c < 4; ++c)
-              acc[a][c] = fmaf(av[a], bv[c], acc[a][c]);
-        }
-        __syncthreads();
-      }
-    }
+    sim_tile<T>(f0b, f1b, L, S, C, i0, j0, tile_smem, acc);
     // sim (and conf) for this thread's 4x4 entries; out-of-range -> skipped
     int cols[4];
     float cm1[4], cmx[4], csm[4];
@@ -340,12 +254,13 @@ __global__ void max_combine_kernel(const float* __restrict__ p, int n, int len,
   o[idx] = m;
 }
 
+// Pass 1 alone: row and column softmax statistics of sim.
 template <typename T>
-int launch(const void* f0, const void* f1, const void* m0, const void* m1,
-           void* row_pa, void* row_pb, void* col_pa, void* col_pb, void* rmax,
-           void* rsum, void* cmax, void* csum, void* best_val, void* best_j,
-           void* colconf, int B, int L, int S, int C, int chunk_tiles,
-           float scale, cudaStream_t st) {
+int launch_stats(const void* f0, const void* f1, const void* m0,
+                 const void* m1, void* row_pa, void* row_pb, void* col_pa,
+                 void* col_pb, void* rmax, void* rsum, void* cmax, void* csum,
+                 int B, int L, int S, int C, int chunk_tiles, float scale,
+                 cudaStream_t st) {
   const int nrt = (L + kTM - 1) / kTM;
   const int nct = (S + kTN - 1) / kTN;
   const int nch = (nct + chunk_tiles - 1) / chunk_tiles;
@@ -361,6 +276,23 @@ int launch(const void* f0, const void* f1, const void* m0, const void* m1,
   lse_combine_kernel<<<(B * S + 255) / 256, 256, 0, st>>>(
       (const float*)col_pa, (const float*)col_pb, nrt, S, B, (float*)cmax,
       (float*)csum);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* f0, const void* f1, const void* m0, const void* m1,
+           void* row_pa, void* row_pb, void* col_pa, void* col_pb, void* rmax,
+           void* rsum, void* cmax, void* csum, void* best_val, void* best_j,
+           void* colconf, int B, int L, int S, int C, int chunk_tiles,
+           float scale, cudaStream_t st) {
+  const int nrt = (L + kTM - 1) / kTM;
+  const int nct = (S + kTN - 1) / kTN;
+  const int nch = (nct + chunk_tiles - 1) / chunk_tiles;
+  const dim3 grid(nrt, nch, B);
+  const int err = launch_stats<T>(f0, f1, m0, m1, row_pa, row_pb, col_pa,
+                                  col_pb, rmax, rsum, cmax, csum, B, L, S, C,
+                                  chunk_tiles, scale, st);
+  if (err != 0) return err;
   tile_kernel<T, 1><<<grid, kThreads, 0, st>>>(
       (const T*)f0, (const T*)f1, (const float*)m0, (const float*)m1,
       (const float*)rmax, (const float*)rsum, (const float*)cmax,
@@ -399,4 +331,25 @@ extern "C" int loftr_dual_softmax(const void* f0, const void* f1,
   return loftr::launch<float>(f0, f1, m0, m1, row_pa, row_pb, col_pa, col_pb,
                               rmax, rsum, cmax, csum, best_val, best_j,
                               colconf, B, L, S, C, chunk_tiles, scale, st);
+}
+
+// Pass 1 alone (the focal-loss kernels' statistics pass): the same inputs
+// and scratch, outputs rmax, rsum [B, L] and cmax, csum [B, S].
+extern "C" int loftr_dual_softmax_stats(const void* f0, const void* f1,
+                                        const void* m0, const void* m1,
+                                        void* row_pa, void* row_pb,
+                                        void* col_pa, void* col_pb, void* rmax,
+                                        void* rsum, void* cmax, void* csum,
+                                        int B, int L, int S, int C,
+                                        int chunk_tiles, float scale,
+                                        int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 1)
+    return loftr::launch_stats<__nv_bfloat16>(f0, f1, m0, m1, row_pa, row_pb,
+                                              col_pa, col_pb, rmax, rsum, cmax,
+                                              csum, B, L, S, C, chunk_tiles,
+                                              scale, st);
+  return loftr::launch_stats<float>(f0, f1, m0, m1, row_pa, row_pb, col_pa,
+                                    col_pb, rmax, rsum, cmax, csum, B, L, S, C,
+                                    chunk_tiles, scale, st);
 }

@@ -1,4 +1,4 @@
-"""ResNet-FPN backbone, (8, 2) variant, for inference.
+"""ResNet-FPN backbone, (8, 2) variant.
 
 Same topology and parameter names as the reference's ``resnet_fpn.py`` (and
 ``loftr_tpu.models.backbone``): stem conv7x7/s2, three stages of two
@@ -8,9 +8,12 @@ align-corners upsampling and 3x3 fusion blocks.  Outputs the coarse (1/8,
 
 The public layout is NHWC, as in the JAX package; the body runs NCHW so the
 convolutions go to cuDNN.  Parameters stay float32 and are cast to the
-activation dtype at each use.  BatchNorm is applied in its eval form: a
-per-channel affine whose coefficients are computed in float32 and applied in
-the activation dtype (``loftr_tpu.models.backbone._BnEvalAffine``).
+activation dtype at each use.  In ``eval()`` BatchNorm is a per-channel
+affine whose coefficients are computed in float32 and applied in the
+activation dtype (``loftr_tpu.models.backbone._BnEvalAffine``).  In
+``train()`` it normalises with the statistics of the batch it is given (both
+images of every pair, packed), computed in float32, and updates the running
+statistics in place.
 """
 from __future__ import annotations
 
@@ -42,8 +45,32 @@ def _bn_affine(bn: nn.BatchNorm2d, dtype: torch.dtype):
             shift.to(dtype)[None, :, None, None])
 
 
+def _bn_train(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """Training BatchNorm: float32 batch statistics over (N, H, W), running
+    statistics updated in place with ``bn.momentum``.
+
+    The running variance takes the *biased* batch variance, as flax's
+    ``nn.BatchNorm`` does in the JAX package this port is held against;
+    ``torch.nn.functional.batch_norm`` would write the unbiased one."""
+    x32 = x.float()
+    mean = x32.mean(dim=(0, 2, 3))
+    # the variance as flax forms it: E[x^2] - E[x]^2, clamped at 0
+    var = ((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+    with torch.no_grad():
+        bn.running_mean.lerp_(mean.detach(), bn.momentum)
+        bn.running_var.lerp_(var.detach(), bn.momentum)
+        bn.num_batches_tracked += 1
+    inv = bn.weight * torch.rsqrt(var + bn.eps)
+    y = (x32 - mean[None, :, None, None]) * inv[None, :, None, None] \
+        + bn.bias[None, :, None, None]
+    return y.to(x.dtype)
+
+
 def apply_bn(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
-    """Eval BatchNorm as a float32-folded affine applied in x's dtype."""
+    """BatchNorm in x's dtype: batch statistics when ``bn.training``, else
+    the running statistics folded into a float32 affine."""
+    if bn.training:
+        return _bn_train(bn, x)
     inv, shift = derived(
         bn, x.dtype, [bn.weight, bn.bias, bn.running_mean, bn.running_var],
         lambda: _bn_affine(bn, x.dtype))
@@ -107,6 +134,14 @@ class ResNetFPN_8_2(nn.Module):
     def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32):
         """x: [B, H, W, 1] -> (coarse [B, H/8, W/8, C2], fine [B, H/2, W/2, C0])."""
         x = x.permute(0, 3, 1, 2).to(dtype)
+        if torch.is_grad_enabled():
+            # under autograd, a copy with standard NCHW strides.  The
+            # permuted view of a one-channel image has the strides of a
+            # channels-last tensor: the CPU convolution's backward corrupts
+            # memory on it (PyTorch 2.13), and on CUDA it sends the whole
+            # training backbone down cuDNN's channels-last path, which
+            # PERF.md measures slower.  Inference keeps the view.
+            x = x.clone(memory_format=torch.contiguous_format)
         x0 = F.relu(apply_bn(self.bn1, apply_conv(self.conv1, x)))
         x1 = self.layer1(x0)                                  # 1/2
         x2 = self.layer2(x1)                                  # 1/4

@@ -3,7 +3,9 @@
 Reads the weights of the plain fine ``LocalFeatureTransformer`` (the same
 ``loftr_fine.layers.{i}.*`` parameters, so one checkpoint drives either
 path) and runs ``ops/kernels/fine_stage.py`` instead of the layer stack plus
-``fine_match``.  Inference only; the reference fine topology only.
+``fine_match``; with ``trainable`` it goes through the autograd function of
+``ops/fine_stage_hybrid.py`` (kernel forward, recomputed plain backward).
+The reference fine topology only.
 """
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import torch
 
 from loftr_tpu_torch.models.transformer import (LocalFeatureTransformer,
                                                 LoFTREncoderLayer)
+from loftr_tpu_torch.ops.fine_stage_hybrid import fused_fine_stage_hybrid
 from loftr_tpu_torch.ops.kernels.fine_stage import (EncoderWeights,
                                                     fused_fine_stage,
                                                     pack_weights)
@@ -34,12 +37,20 @@ def encoder_weights(layer: LoFTREncoderLayer) -> EncoderWeights:
 
 
 def fused_fine_forward(tr: LocalFeatureTransformer, win0: torch.Tensor,
-                       win1: torch.Tensor) -> torch.Tensor:
+                       win1: torch.Tensor,
+                       trainable: bool = False) -> torch.Tensor:
     """win0, win1: [B, K, W2, C] -> expec_f [B, K, 3] float32."""
     if tr.layer_names != ("self", "cross"):
         raise ValueError("the fine-stage kernel implements the reference "
                          "topology ('self', 'cross') only")
     b, k, w2, c = win0.shape
+    if trainable:
+        expec = fused_fine_stage_hybrid(
+            win0.reshape(b * k, w2, c).contiguous(),
+            win1.reshape(b * k, w2, c).contiguous(),
+            encoder_weights(tr.layers[0]), encoder_weights(tr.layers[1]),
+            nheads=tr.nhead)
+        return expec.reshape(b, k, 3)
     packed = None
     if win0.is_cuda:
         packed = tuple(packed_weights(layer, win0.dtype)

@@ -1,22 +1,32 @@
-"""LoFTR matcher, inference: the coarse-to-fine pipeline on PyTorch.
+"""LoFTR matcher: the coarse-to-fine pipeline on PyTorch.
 
-Same stage order as ``loftr_tpu.models.matcher.LoFTR`` with ``train=False``
-(the reference's loftr.py:29-75):
+Same stage order as ``loftr_tpu.models.matcher.LoFTR`` (the reference's
+loftr.py:29-75):
   [1] ResNet-FPN backbone (both images in one call when their shapes agree)
   [2] position encoding + flatten to [B, L, C]
   [3] coarse transformer (self/cross x4)          -> coarse-layer kernel
   [4] dual-softmax + mutual-nearest candidates    -> dual-softmax kernel
-      then static top-K selection (K = min(max_matches, L))
+      then static top-K selection (K = min(max_matches, L)), or in training
+      the random selection with GT padding (K = train_coarse_percent * L)
   [5] 5x5 fine windows at the matches + coarse-context concat
   [6]+[7] fine transformer + soft-argmax          -> fine-stage kernel
 The ``use_pallas`` switches of ``cfg.coarse``, ``cfg.match_coarse`` and
-``cfg.fine`` choose the kernel module (True) or the plain PyTorch path.
-A kernel module runs its CUDA kernel on CUDA tensors and its plain version
-on CPU tensors.
+``cfg.fine`` choose the kernel module (True) or the plain PyTorch path at
+inference.  A kernel module runs its CUDA kernel on CUDA tensors and its
+plain version on CPU tensors.
+
+Training (``forward(inp, train=True, ...)`` on a module in ``train()``
+mode) runs the plain, differentiable coarse transformer, BatchNorm on batch
+statistics, the unfold window gather and the plain fine transformer with
+fused heads (or, with ``fine.use_pallas_train``, the hybrid fine stage).
+With the fused focal loss (``loss.use_pallas`` with dual-softmax, dense
+supervision and the focal loss) the candidates come from the dual-softmax
+kernel module without autograd, no [B, L, S] matrix is formed, and the
+result carries the coarse features for the loss; otherwise the
+differentiable ``dual_softmax_conf`` is returned in ``conf_matrix``.
 
 Submodule names follow the reference state_dict (``backbone``,
-``loftr_coarse``, ``fine_preprocess``, ``loftr_fine``).  Inference only:
-``forward`` runs without autograd.
+``loftr_coarse``, ``fine_preprocess``, ``loftr_fine``).
 """
 from __future__ import annotations
 
@@ -35,7 +45,8 @@ from loftr_tpu_torch.models.transformer import (LocalFeatureTransformer,
 from loftr_tpu_torch.ops import matching as M
 from loftr_tpu_torch.ops.fine_match import fine_kpts, fine_match
 from loftr_tpu_torch.ops.packing import pack_rows, unpack_rows
-from loftr_tpu_torch.ops.windows import gather_fine_windows_direct
+from loftr_tpu_torch.ops.windows import (gather_fine_windows,
+                                         gather_fine_windows_direct)
 from loftr_tpu_torch.structs import CoarseMatches, MatchInput, MatchResult
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -71,11 +82,13 @@ class LoFTR(nn.Module):
                                        bb.block_dims, bb.norm)
         c, f = config.coarse, config.fine
         self.loftr_coarse = LocalFeatureTransformer(
-            c.d_model, c.nhead, c.layer_names, c.attention)
+            c.d_model, c.nhead, c.layer_names, c.attention,
+            fused_heads=c.fused_heads)
         if f.concat_coarse_feat:
             self.fine_preprocess = FinePreprocess(c.d_model, f.d_model)
         self.loftr_fine = LocalFeatureTransformer(
-            f.d_model, f.nhead, f.layer_names, f.attention)
+            f.d_model, f.nhead, f.layer_names, f.attention,
+            fused_heads=f.fused_heads)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -107,10 +120,10 @@ class LoFTR(nn.Module):
         return Features(feat_c0, feat_c1, feat_f0.contiguous(),
                         feat_f1.contiguous(), mask_c0, mask_c1)
 
-    def coarse(self, f: Features) -> Features:
-        """[3] coarse transformer."""
+    def coarse(self, f: Features, train: bool = False) -> Features:
+        """[3] coarse transformer (the kernel is inference only)."""
         cfg = self.config
-        if cfg.coarse.use_pallas:
+        if cfg.coarse.use_pallas and not train:
             c0, c1 = fused_coarse_forward(self.loftr_coarse, f.feat_c0,
                                           f.feat_c1, f.mask_c0, f.mask_c1,
                                           cfg.batch_packing)
@@ -119,8 +132,22 @@ class LoFTR(nn.Module):
                                        f.mask_c1, cfg.batch_packing)
         return f._replace(feat_c0=c0, feat_c1=c1)
 
-    def match(self, f: Features, inp: MatchInput):
-        """[4] coarse matching + top-K.  Returns (matches, conf or None)."""
+    def fused_loss(self, train: bool) -> bool:
+        """Whether a training forward feeds the fused focal loss: no conf
+        matrix, candidates from the kernel module, features returned."""
+        cfg = self.config
+        mc = cfg.match_coarse
+        return (train and cfg.loss.use_pallas
+                and mc.match_type == "dual_softmax" and not mc.sparse_spvs
+                and cfg.loss.coarse_type == "focal")
+
+    def match(self, f: Features, inp: MatchInput, train: bool = False,
+              generator: Optional[torch.Generator] = None,
+              gt_j: Optional[torch.Tensor] = None,
+              gt_valid: Optional[torch.Tensor] = None,
+              noise: Optional[dict] = None):
+        """[4] coarse matching + selection.  Returns (matches, conf or
+        None)."""
         cfg = self.config
         mc = cfg.match_coarse
         if mc.match_type != "dual_softmax":
@@ -128,23 +155,46 @@ class LoFTR(nn.Module):
                 f"match_type {mc.match_type!r}: only dual_softmax is ported")
         hw0_c, hw1_c = self._coarse_hw(inp)
         conf = None
-        if mc.use_pallas:
-            cand = M.kernel_mutual_nearest_candidates(
-                f.feat_c0.contiguous(), f.feat_c1.contiguous(),
-                mc.dsmax_temperature, mc.thr, mc.border_rm, hw0_c, hw1_c,
-                inp.mask0, inp.mask1)
+        if self.fused_loss(train) or (mc.use_pallas and not train):
+            with torch.no_grad():
+                cand = M.kernel_mutual_nearest_candidates(
+                    f.feat_c0.detach().contiguous(),
+                    f.feat_c1.detach().contiguous(),
+                    mc.dsmax_temperature, mc.thr, mc.border_rm, hw0_c, hw1_c,
+                    inp.mask0, inp.mask1)
         else:
             conf = M.dual_softmax_conf(f.feat_c0, f.feat_c1,
                                        mc.dsmax_temperature, f.mask_c0,
                                        f.mask_c1)
-            cand = M.mutual_nearest_candidates(conf, mc.thr, mc.border_rm,
-                                               hw0_c, hw1_c, inp.mask0,
-                                               inp.mask1)
-        L = f.feat_c0.shape[1]
-        return M.topk_matches(cand, min(mc.max_matches, L)), conf
+            with torch.no_grad():
+                cand = M.mutual_nearest_candidates(
+                    conf.detach(), mc.thr, mc.border_rm, hw0_c, hw1_c,
+                    inp.mask0, inp.mask1)
+        L, S = f.feat_c0.shape[1], f.feat_c1.shape[1]
+        if not train:
+            return M.topk_matches(cand, min(mc.max_matches, L)), conf
+        if gt_j is None or gt_valid is None:
+            raise ValueError("training selection needs the coarse "
+                             "supervision (gt_j, gt_valid)")
+        if generator is None and noise is None:
+            raise ValueError("training selection needs a generator (or "
+                             "pre-drawn noise)")
+        k_train = mc.train_matches or int(mc.train_coarse_percent * max(L, S))
+        # the static k_train stays the capacity; under masks the slots
+        # beyond the mask-aware budget are masked out of the losses
+        budget = None
+        if inp.mask0 is not None:
+            budget = M.mask_match_budget(inp.mask0, inp.mask1,
+                                         mc.train_coarse_percent)
+        with torch.no_grad():
+            matches = M.select_train_matches(
+                cand, gt_j, gt_valid, generator, k_train,
+                mc.train_pad_num_gt_min, budget=budget,
+                sampling=mc.train_sampling, noise=noise)
+        return matches, conf
 
-    def fine(self, f: Features, matches: CoarseMatches,
-             inp: MatchInput) -> torch.Tensor:
+    def fine(self, f: Features, matches: CoarseMatches, inp: MatchInput,
+             train: bool = False) -> torch.Tensor:
         """[5] fine windows + coarse context, [6]+[7] fine stage.
         Returns expec_f [B, K, 3] float32."""
         cfg = self.config
@@ -152,10 +202,13 @@ class LoFTR(nn.Module):
         hw0_c, hw1_c = self._coarse_hw(inp)
         W = cfg.fine.window_size
         stride = f.feat_f0.shape[1] // hw0_c[0]
-        win0 = gather_fine_windows_direct(f.feat_f0, matches.i_ids, hw0_c, W,
-                                          stride)
-        win1 = gather_fine_windows_direct(f.feat_f1, matches.j_ids, hw1_c, W,
-                                          stride)
+        gmode = cfg.fine.gather
+        if gmode == "auto":
+            gmode = "unfold" if train else "direct"
+        gather = (gather_fine_windows_direct if gmode == "direct"
+                  else gather_fine_windows)
+        win0 = gather(f.feat_f0, matches.i_ids, hw0_c, W, stride)
+        win1 = gather(f.feat_f1, matches.j_ids, hw1_c, W, stride)
         B, K, ww, d_f = win0.shape
         if cfg.fine.concat_coarse_feat:
             d_c = f.feat_c0.shape[-1]
@@ -170,8 +223,10 @@ class LoFTR(nn.Module):
                 [win0, c0w[:, :, None, :].expand(B, K, ww, d_f)], dim=-1))
             win1 = apply_linear(fp.merge_feat, torch.cat(
                 [win1, c1w[:, :, None, :].expand(B, K, ww, d_f)], dim=-1))
-        if cfg.fine.use_pallas:
-            return fused_fine_forward(self.loftr_fine, win0, win1)
+        if cfg.fine.use_pallas_train if train else cfg.fine.use_pallas:
+            # raises for a topology other than the kernel's ('self', 'cross')
+            return fused_fine_forward(self.loftr_fine, win0, win1,
+                                      trainable=train)
         f0, f1 = self.loftr_fine(win0.reshape(B * K, ww, d_f),
                                  win1.reshape(B * K, ww, d_f),
                                  batch_packing=pk)
@@ -184,20 +239,38 @@ class LoFTR(nn.Module):
         _, H1, W1, _ = inp.image1.shape
         return (H0 // r, W0 // r), (H1 // r, W1 // r)
 
-    @torch.no_grad()
-    def forward(self, inp: MatchInput) -> MatchResult:
+    def forward(self, inp: MatchInput, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                gt_j: Optional[torch.Tensor] = None,
+                gt_valid: Optional[torch.Tensor] = None,
+                noise: Optional[dict] = None) -> MatchResult:
+        """Inference (``train=False``, module in ``eval()``) runs without
+        autograd.  Training (``train=True``, module in ``train()``) carries
+        the graph, takes the coarse supervision ``gt_j``/``gt_valid`` and a
+        ``generator`` on the inputs' device (or the pre-drawn ``noise`` of
+        ``ops.matching.draw_select_noise``) for the match selection."""
+        if train != self.training:
+            raise ValueError(
+                f"forward(train={train}) on a module in "
+                f"{'train' if self.training else 'eval'}() mode: BatchNorm "
+                "follows the module's mode, so set it with .train()/.eval()")
         cfg = self.config
         res_c, res_f = cfg.backbone.resolution
         hw0_c, hw1_c = self._coarse_hw(inp)
-        feats = self.coarse(self.extract(inp))
-        matches, conf = self.match(feats, inp)
-        mkpts0_c, mkpts1_c = M.matches_to_kpts(matches, hw0_c, hw1_c, res_c,
-                                               inp.scale0, inp.scale1)
-        expec_f = self.fine(feats, matches, inp)
-        mkpts0_f, mkpts1_f = fine_kpts(expec_f, mkpts0_c, mkpts1_c,
-                                       cfg.fine.window_size, res_f,
-                                       inp.scale1)
+        with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+            feats = self.coarse(self.extract(inp), train)
+            matches, conf = self.match(feats, inp, train, generator, gt_j,
+                                       gt_valid, noise)
+            mkpts0_c, mkpts1_c = M.matches_to_kpts(
+                matches, hw0_c, hw1_c, res_c, inp.scale0, inp.scale1)
+            expec_f = self.fine(feats, matches, inp, train)
+            mkpts0_f, mkpts1_f = fine_kpts(expec_f.detach(), mkpts0_c,
+                                           mkpts1_c, cfg.fine.window_size,
+                                           res_f, inp.scale1)
+        fused = self.fused_loss(train)
         return MatchResult(coarse=matches, mkpts0_c=mkpts0_c,
                            mkpts1_c=mkpts1_c, mkpts0_f=mkpts0_f,
                            mkpts1_f=mkpts1_f, expec_f=expec_f,
-                           conf_matrix=conf)
+                           conf_matrix=conf,
+                           feat_c0=feats.feat_c0 if fused else None,
+                           feat_c1=feats.feat_c1 if fused else None)

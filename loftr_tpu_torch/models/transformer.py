@@ -8,6 +8,10 @@ second LayerNorm and the residual ``x + message``.
 
 Parameters stay float32 and are cast to the activation dtype at each use;
 LayerNorm runs in float32 and casts back, as in the JAX package.
+
+``fused_heads`` selects ``linear_attention_fused_heads`` (the same values in
+wide products) while the module is in ``train()`` mode; ``eval()`` keeps the
+per-head form.
 """
 from __future__ import annotations
 
@@ -17,7 +21,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from loftr_tpu_torch.ops.attention import linear_attention
+from loftr_tpu_torch.ops.attention import (linear_attention,
+                                           linear_attention_fused_heads)
 from loftr_tpu_torch.ops.packing import pack_rows, unpack_rows
 from loftr_tpu_torch.utils.derived import derived
 
@@ -36,10 +41,11 @@ def layer_norm_f32(m: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 
 class LoFTREncoderLayer(nn.Module):
-    def __init__(self, d_model: int, nhead: int):
+    def __init__(self, d_model: int, nhead: int, fused_heads: bool = False):
         super().__init__()
         self.nhead = nhead
         self.d_model = d_model
+        self.fused_heads = fused_heads
         self.q_proj = nn.Linear(d_model, d_model, bias=False)
         self.k_proj = nn.Linear(d_model, d_model, bias=False)
         self.v_proj = nn.Linear(d_model, d_model, bias=False)
@@ -59,8 +65,9 @@ class LoFTREncoderLayer(nn.Module):
         q = apply_linear(self.q_proj, x).reshape(b, l, h, d)
         k = apply_linear(self.k_proj, source).reshape(b, -1, h, d)
         v = apply_linear(self.v_proj, source).reshape(b, -1, h, d)
-        message = linear_attention(q, k, v, q_mask=x_mask,
-                                   kv_mask=source_mask)
+        attn = (linear_attention_fused_heads
+                if self.fused_heads and self.training else linear_attention)
+        message = attn(q, k, v, q_mask=x_mask, kv_mask=source_mask)
         message = apply_linear(self.merge, message.reshape(b, l, c))
         message = layer_norm_f32(self.norm1, message).to(x.dtype)
         y = torch.cat([x, message], dim=-1)
@@ -102,7 +109,7 @@ class LocalFeatureTransformer(nn.Module):
     """A named sequence of 'self'/'cross' encoder layers (plain path)."""
 
     def __init__(self, d_model: int, nhead: int, layer_names: Sequence[str],
-                 attention: str = "linear"):
+                 attention: str = "linear", fused_heads: bool = False):
         super().__init__()
         if attention != "linear":
             raise NotImplementedError(
@@ -111,7 +118,8 @@ class LocalFeatureTransformer(nn.Module):
         self.nhead = nhead
         self.layer_names = tuple(layer_names)
         self.layers = nn.ModuleList(
-            [LoFTREncoderLayer(d_model, nhead) for _ in self.layer_names])
+            [LoFTREncoderLayer(d_model, nhead, fused_heads)
+             for _ in self.layer_names])
 
     def forward(self, feat0, feat1, mask0=None, mask1=None,
                 batch_packing: str = "concat"):

@@ -1,10 +1,11 @@
 """Coarse matching: dual-softmax confidence and static-capacity selection.
 
-The inference half of ``loftr_tpu.ops.matching``: the plain
+``loftr_tpu.ops.matching`` without its Sinkhorn half: the plain
 ``dual_softmax_conf`` + ``mutual_nearest_candidates`` path, the kernel path
 ``kernel_mutual_nearest_candidates`` (the JAX package's
-``pallas_mutual_nearest_candidates``), fixed-capacity ``topk_matches`` and
-``matches_to_kpts``.  Training selection and Sinkhorn wait for later slices.
+``pallas_mutual_nearest_candidates``), fixed-capacity ``topk_matches``,
+the training selection ``select_train_matches`` with ``mask_match_budget``,
+and ``matches_to_kpts``.
 """
 from __future__ import annotations
 
@@ -115,20 +116,149 @@ def kernel_mutual_nearest_candidates(
     return CandidateMatches(j_ids=best_j, mconf=mconf, valid=valid)
 
 
+def _top_k(score: torch.Tensor, k: int):
+    """(values, indices) of the k largest along dim 1.  A stable descending
+    sort, so ties keep the lowest index first, as jax.lax.top_k does
+    (torch.topk does not promise that)."""
+    val, idx = torch.sort(score, dim=1, descending=True, stable=True)
+    return val[:, :k], idx[:, :k]
+
+
 def topk_matches(cand: CandidateMatches, k: int) -> CoarseMatches:
-    """Top-k candidates by confidence.  A stable descending sort, so ties
-    (every invalid slot scores -1) keep the lowest index first, as
-    jax.lax.top_k does."""
+    """Top-k candidates by confidence; every invalid slot scores -1 and
+    ties with the others, so those come out in index order."""
     score = torch.where(cand.valid, cand.mconf,
                         torch.full_like(cand.mconf, -1.0))
-    top_conf, i_ids = torch.sort(score, dim=1, descending=True, stable=True)
-    top_conf, i_ids = top_conf[:, :k], i_ids[:, :k]
+    top_conf, i_ids = _top_k(score, k)
     j_ids = torch.gather(cand.j_ids, 1, i_ids)
     mask = top_conf > 0.0
     mconf = torch.where(mask, top_conf, torch.zeros_like(top_conf))
     return CoarseMatches(i_ids=i_ids.to(torch.int32),
                          j_ids=j_ids.to(torch.int32), mconf=mconf, mask=mask,
                          gt_mask=torch.zeros_like(mask))
+
+
+def mask_match_budget(mask0: torch.Tensor, mask1: torch.Tensor,
+                      percent: float) -> torch.Tensor:
+    """Per-pair train-match budget from the padding masks: percent times
+    the smaller of the two masks' effective extents (largest column sum
+    times largest row sum).  mask0/mask1: [B, hc, wc] bool.  Returns
+    int32 [B]."""
+    def extent(m):
+        mi = m.to(torch.int32)
+        return mi.sum(dim=1).amax(dim=-1) * mi.sum(dim=2).amax(dim=-1)
+    cand = torch.minimum(extent(mask0), extent(mask1))
+    return torch.floor(percent * cand.float()).to(torch.int32)
+
+
+# the uniform arrays each sampling mode consumes, in the order drawn
+SELECT_NOISE = {
+    "per_pair": ("pred", "gt_sel", "gt_pick"),
+    "global_replacement": ("quota", "shuffle", "pick", "gt_sel", "gt_pick"),
+}
+
+
+def draw_select_noise(B: int, L: int, k_train: int, sampling: str,
+                      generator: Optional[torch.Generator], device) -> dict:
+    """The uniform draws select_train_matches consumes, by name: priorities
+    in [0.1, 1) for "pred"/"shuffle"/"gt_sel" [B, L], picks in [0, 1) for
+    "pick"/"gt_pick" [B, k_train] and "quota" [B]."""
+    shapes = {"pred": (B, L), "shuffle": (B, L), "gt_sel": (B, L),
+              "pick": (B, k_train), "gt_pick": (B, k_train), "quota": (B,)}
+    out = {}
+    for name in SELECT_NOISE[sampling]:
+        u = torch.rand(shapes[name], generator=generator, device=device)
+        if name in ("pred", "shuffle", "gt_sel"):
+            u = 0.1 + 0.9 * u
+        out[name] = u
+    return out
+
+
+def select_train_matches(cand: CandidateMatches, gt_j: torch.Tensor,
+                         gt_valid: torch.Tensor,
+                         generator: Optional[torch.Generator], k_train: int,
+                         pad_num_gt_min: int,
+                         budget: Optional[torch.Tensor] = None,
+                         sampling: str = "per_pair",
+                         noise: Optional[dict] = None) -> CoarseMatches:
+    """Training-time selection with GT padding.
+
+    Keeps at most ``k_train - pad_num_gt_min`` random predicted matches and
+    fills the remaining slots with random GT positives (with replacement,
+    conf 0).  All k_train slots are populated, so the fine stage sees a
+    full static batch.  A pair with no GT gets dummy (0, 0) entries.
+
+    gt_j/gt_valid: [B, L] per-row GT partners.  budget: optional int32 [B]
+    (:func:`mask_match_budget`); slots beyond it get mask=False.
+    sampling: 'per_pair' draws each pair's predicted slots without
+    replacement from that pair's candidates; 'global_replacement' gives
+    each pair a quota proportional to its share of the batch's candidates
+    and draws with replacement.
+
+    The random numbers come from ``generator`` (on the candidates' device),
+    or from ``noise``: the pre-drawn uniform arrays of
+    :func:`draw_select_noise`, which lets a test feed the numbers another
+    framework drew.
+    """
+    B, L = cand.valid.shape
+    dev = cand.valid.device
+    k_pred_max = k_train - pad_num_gt_min
+    if k_pred_max <= 0:
+        raise ValueError("pad_num_gt_min must be < k_train")
+    if noise is None:
+        noise = draw_select_noise(B, L, k_train, sampling, generator, dev)
+
+    slot = torch.arange(k_train, device=dev)[None, :]
+    if budget is None:
+        eff = torch.full((B, 1), k_train, dtype=torch.int32, device=dev)
+        eff_pred = torch.full((B, 1), k_pred_max, dtype=torch.int32,
+                              device=dev)
+    else:
+        eff = budget.clamp(pad_num_gt_min + 1, k_train)[:, None]
+        eff_pred = eff - pad_num_gt_min
+    neg1 = torch.full((), -1.0, device=dev)
+
+    if sampling == "global_replacement":
+        n_cand = cand.valid.sum(dim=1)                         # [B]
+        total = n_cand.sum().clamp_min(1)
+        expect = (B * k_pred_max) * n_cand / total
+        quota = torch.floor(expect + noise["quota"]).to(torch.int32)
+        eff_pred = torch.minimum(quota[:, None], eff_pred)
+        cpri = torch.where(cand.valid, noise["shuffle"], neg1)
+        _, corder = _top_k(cpri, L)                            # valid first
+        pick = torch.floor(noise["pick"] * n_cand.clamp_min(1)[:, None]
+                           ).long().clamp(0, L - 1)
+        pred_order = torch.gather(corder, 1, pick)
+        pred_take = (n_cand[:, None] > 0) & (slot < eff_pred)
+    elif sampling == "per_pair":
+        pri = torch.where(cand.valid, noise["pred"], neg1)
+        _, pred_order = _top_k(pri, k_train)                   # [B, k_train]
+        pred_valid = torch.gather(cand.valid, 1, pred_order)
+        pred_take = pred_valid & (slot < eff_pred)
+    else:
+        raise ValueError(sampling)
+    pred_i = pred_order.to(torch.int32)
+    pred_j = torch.gather(cand.j_ids, 1, pred_order).to(torch.int32)
+    pred_conf = torch.gather(cand.mconf, 1, pred_order)
+
+    # GT pool: valid GT rows first, in random order; picks with replacement
+    gpri = torch.where(gt_valid, noise["gt_sel"], neg1)
+    _, gt_order = _top_k(gpri, L)
+    n_gt = gt_valid.sum(dim=1)
+    pick = torch.floor(noise["gt_pick"] * n_gt.clamp_min(1)[:, None]
+                       ).long().clamp(0, L - 1)
+    gt_rows = torch.gather(gt_order, 1, pick)
+    gt_cols = torch.gather(gt_j.long(), 1, gt_rows)
+    has_gt = (n_gt > 0)[:, None]
+    gt_rows = torch.where(has_gt, gt_rows, torch.zeros_like(gt_rows))
+    gt_cols = torch.where(has_gt, gt_cols, torch.zeros_like(gt_cols))
+
+    i_ids = torch.where(pred_take, pred_i, gt_rows.to(torch.int32))
+    j_ids = torch.where(pred_take, pred_j, gt_cols.to(torch.int32))
+    mconf = torch.where(pred_take, pred_conf, torch.zeros_like(pred_conf))
+    mask = (slot < eff).expand(B, k_train)
+    return CoarseMatches(i_ids=i_ids, j_ids=j_ids, mconf=mconf, mask=mask,
+                         gt_mask=mask & ~pred_take)
 
 
 def matches_to_kpts(matches: CoarseMatches, hw0_c: tuple, hw1_c: tuple,

@@ -1,5 +1,7 @@
-"""Fine-level window extraction by direct gather
-(``loftr_tpu.ops.windows.gather_fine_windows_direct``).
+"""Fine-level window extraction (``loftr_tpu.ops.windows``): the direct
+gather of the K selected windows (inference) and the unfold gather, which
+builds all L windows from strided slices and gathers K rows (training: its
+backward is dense slice-adds instead of scatter-adds).
 
 Window geometry matches the reference's F.unfold(kernel=W, stride=stride,
 padding=W//2): the window for coarse cell (y, x) starts at fine-map pixel
@@ -30,3 +32,26 @@ def gather_fine_windows_direct(feat_f: torch.Tensor, cell_ids: torch.Tensor,
     bi = torch.arange(b, device=feat_f.device)[:, None, None, None]
     win = fp[bi, ys, xs]                              # [B, K, W, W, C]
     return win.reshape(b, k, window * window, c)
+
+
+def gather_fine_windows(feat_f: torch.Tensor, cell_ids: torch.Tensor,
+                        hw_c: tuple, window: int, stride: int
+                        ) -> torch.Tensor:
+    """Same output as :func:`gather_fine_windows_direct`, by W*W shifted
+    strided slices stacked to [B, L, W*W*C] rows and one row gather."""
+    b, _, _, c = feat_f.shape
+    k = cell_ids.shape[1]
+    hc, wc = hw_c
+    rad = window // 2
+    fp = F.pad(feat_f, (0, 0, rad, rad + stride, rad, rad + stride))
+    taps = []
+    for dy in range(window):
+        for dx in range(window):
+            # tap (dy, dx) of cell (y, x) reads fp[y*stride + dy, x*stride + dx]
+            taps.append(fp[:, dy:dy + (hc - 1) * stride + 1:stride,
+                           dx:dx + (wc - 1) * stride + 1:stride, :])
+    allwin = torch.stack(taps, dim=3)                 # [B, hc, wc, WW, C]
+    allwin = allwin.reshape(b, hc * wc, window * window * c)
+    rows = torch.gather(allwin, 1, cell_ids.long()[:, :, None].expand(
+        b, k, window * window * c))
+    return rows.reshape(b, k, window * window, c)

@@ -1,0 +1,157 @@
+"""Training orchestration (``loftr_tpu.train.trainer``): state and the
+train / eval / validation steps.
+
+One training step = coarse supervision -> forward (train selection) -> fine
+supervision -> loss -> gradients -> clip -> optimizer update (the
+reference's lightning_loftr.py:84-93).  PyTorch runs eagerly, so a step is
+a plain method; it updates the state's module and optimizer in place and
+returns the same state object.  Scalars stay tensors on the device (no host
+synchronisation inside a step), except ``lr``.
+
+With ``accum_steps > 1`` the micro-batch gradients are averaged, the
+*average* is clipped, the optimizer runs once per ``accum_steps`` steps and
+the schedule counts those real updates (``optax.MultiSteps`` semantics).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import torch
+
+from loftr_tpu_torch.api import resolve_device, with_config
+from loftr_tpu_torch.config import Config
+from loftr_tpu_torch.losses import loftr_loss
+from loftr_tpu_torch.models.matcher import LoFTR
+from loftr_tpu_torch.structs import MatchInput, MatchResult
+from loftr_tpu_torch.supervision import coarse_supervision, fine_supervision
+from loftr_tpu_torch.train.optim import (build_optimizer, clip_by_global_norm,
+                                         global_norm, lr_schedule)
+from loftr_tpu_torch.utils.weights import init_weights
+
+
+@dataclass
+class TrainState:
+    step: int                               # micro-steps taken
+    module: LoFTR                           # parameters + running statistics
+    optimizer: torch.optim.Optimizer
+    generator: torch.Generator              # match-selection randomness
+    accum: Optional[List[torch.Tensor]] = None  # running mean of gradients
+
+
+class Trainer:
+    """Owns the configuration, schedule and step functions.
+
+        trainer = Trainer(config)                 # on CUDA unless device="cpu"
+        state = trainer.init_state(seed=0)
+        state, scalars = trainer.train_step(state, batch)
+    """
+
+    def __init__(self, config: Config, world_size: int = 1,
+                 batch_size_per_device: int = 1, device="cuda"):
+        if world_size > 1:
+            raise NotImplementedError(
+                "Trainer(world_size > 1): data-parallel training waits for "
+                "the parallel modules (ROADMAP.md queue 1 item 13)")
+        self.config = config
+        self.device = resolve_device(device)
+        self.true_lr, self.warmup_step = config.scaled_lr(
+            world_size, batch_size_per_device)
+        self._accum = max(1, config.trainer.accum_steps)
+        self._lr_sched = lr_schedule(config.trainer, self.true_lr,
+                                     self.warmup_step)
+        self._res_c, self._res_f = config.loftr.backbone.resolution
+        self._window = config.loftr.fine.window_size
+
+    # ---------------------------------------------------------------- init
+    def init_state(self, seed: int = 0,
+                   state_dict: Optional[dict] = None) -> TrainState:
+        """A fresh state: seeded random weights (or ``state_dict``), a new
+        optimizer and a generator seeded from ``seed`` on the device."""
+        model = LoFTR(self.config.loftr)
+        if state_dict is not None:
+            model.load_state_dict(state_dict)
+        else:
+            init_weights(model, seed)
+        model = model.to(self.device).train()
+        opt = build_optimizer(model.parameters(), self.config.trainer,
+                              self.true_lr)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return TrainState(step=0, module=model, optimizer=opt, generator=gen)
+
+    # ---------------------------------------------------------------- step
+    def forward_loss(self, state: TrainState, batch: MatchInput,
+                     noise: Optional[dict] = None):
+        """Supervision, training forward and loss.  Returns (loss, scalars,
+        MatchResult)."""
+        model = state.module.train()
+        spv = coarse_supervision(batch, self._res_c)
+        out = model(batch, train=True, generator=state.generator,
+                    gt_j=spv.gt_j, gt_valid=spv.gt_valid, noise=noise)
+        expec_f_gt = fine_supervision(spv, out.coarse, batch, self._res_f,
+                                      self._window)
+        loss, scalars = loftr_loss(out, spv, expec_f_gt, batch,
+                                   self.config.loftr.loss,
+                                   self.config.loftr.match_coarse)
+        return loss, scalars, out
+
+    def apply_gradients(self, state: TrainState,
+                        grads: List[torch.Tensor]) -> float:
+        """Accumulate, and on a real update clip and step the optimizer.
+        Returns the learning rate of the update this micro-step belongs to."""
+        k = state.step % self._accum
+        lr = self._lr_sched(state.step // self._accum)
+        if self._accum > 1:
+            if k == 0:
+                state.accum = [g.clone() for g in grads]
+            else:
+                for a, g in zip(state.accum, grads):
+                    a.add_((g - a) / (k + 1))
+            grads = state.accum
+        if k == self._accum - 1:
+            clip_by_global_norm(grads, self.config.trainer.gradient_clipping)
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr
+            for p, g in zip(state.module.parameters(), grads):
+                p.grad = g
+            state.optimizer.step()
+            state.optimizer.zero_grad(set_to_none=True)
+            state.accum = None
+        state.step += 1
+        return lr
+
+    def train_step(self, state: TrainState, batch: MatchInput,
+                   noise: Optional[dict] = None) -> Tuple[TrainState, dict]:
+        """One (micro-)step on ``batch``; ``noise`` replaces the generator's
+        draws for the match selection (tests)."""
+        batch = batch.to(self.device)
+        loss, scalars, _ = self.forward_loss(state, batch, noise)
+        params = list(state.module.parameters())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        scalars = {k: v.detach() for k, v in scalars.items()}
+        scalars["grad_norm"] = global_norm(grads)
+        scalars["lr"] = self.apply_gradients(state, grads)
+        return state, scalars
+
+    def eval_step(self, state: TrainState, batch: MatchInput) -> MatchResult:
+        return state.module.eval()(batch.to(self.device))
+
+    def val_step(self, state: TrainState, batch: MatchInput):
+        """Validation: eval-mode forward and the loss on the top-K
+        predicted matches (slot masks, no GT padding).  The loss needs the
+        confidence matrix, which the matching kernel never forms, so the
+        matcher and the fine stage run their plain paths here."""
+        batch = batch.to(self.device)
+        val_model = with_config(state.module.eval(), {
+            "match_coarse": {"use_pallas": False},
+            "fine": {"use_pallas": False}})
+        spv = coarse_supervision(batch, self._res_c)
+        out = val_model(batch)
+        expec_f_gt = fine_supervision(spv, out.coarse, batch, self._res_f,
+                                      self._window)
+        _, scalars = loftr_loss(out, spv, expec_f_gt, batch,
+                                self.config.loftr.loss,
+                                self.config.loftr.match_coarse)
+        return out, scalars

@@ -100,9 +100,15 @@ def test_import_leaves_jax_out():
     code = ("import sys, loftr_tpu_torch, loftr_tpu_torch.api, "
             "loftr_tpu_torch.ops.kernels.coarse_layer, "
             "loftr_tpu_torch.ops.kernels.dual_softmax, "
-            "loftr_tpu_torch.ops.kernels.fine_stage\n"
-            "bad = [m for m in sys.modules if m in ('jax', 'flax', "
-            "'loftr_tpu') or m.startswith(('jax.', 'flax.', 'loftr_tpu.'))]\n"
+            "loftr_tpu_torch.ops.kernels.fine_stage, "
+            "loftr_tpu_torch.ops.kernels.focal_loss, "
+            "loftr_tpu_torch.ops.fine_stage_hybrid, loftr_tpu_torch.losses, "
+            "loftr_tpu_torch.supervision, loftr_tpu_torch.train.optim, "
+            "loftr_tpu_torch.train.trainer, "
+            "loftr_tpu_torch.train.checkpoint\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "
+            "'orbax', 'loftr_tpu') or m.startswith(('jax.', 'flax.', "
+            "'optax.', 'orbax.', 'loftr_tpu.'))]\n"
             "print(bad)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -122,10 +128,11 @@ def _imports(path):
 
 def _is_forbidden(mod):
     return any(mod == p or mod.startswith(p + ".")
-               for p in ("jax", "flax", "loftr_tpu"))
+               for p in ("jax", "flax", "optax", "orbax", "loftr_tpu"))
 
 
-@pytest.mark.parametrize("root", ["loftr_tpu_torch", "chip_smoke.py"])
+@pytest.mark.parametrize("root", ["loftr_tpu_torch", "chip_smoke.py",
+                                  "tools/profile_torch_port.py"])
 def test_no_jax_imports_in_port_sources(root):
     path = os.path.join(REPO, root)
     files = [path] if path.endswith(".py") else [
@@ -135,6 +142,13 @@ def test_no_jax_imports_in_port_sources(root):
     bad = [(f, m) for f in files for m in _imports(f) if _is_forbidden(m)]
     assert bad == []
     assert not _is_forbidden("loftr_tpu_torch.api")
+    assert _is_forbidden("optax") and _is_forbidden("orbax.checkpoint")
+    if root == "loftr_tpu_torch":
+        names = {os.path.relpath(f, path) for f in files}
+        assert {"losses.py", "supervision.py", "train/trainer.py",
+                "train/optim.py", "train/checkpoint.py",
+                "ops/kernels/focal_loss.py",
+                "ops/fine_stage_hybrid.py"} <= names
 
 
 def test_load_matcher_default_device_needs_cuda(monkeypatch):
