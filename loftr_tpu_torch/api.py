@@ -50,7 +50,10 @@ def load_matcher(weights_path: Optional[str] = None,
                  device="cuda") -> LoFTR:
     """A LoFTR matcher in eval mode on ``device``: weights from a reference
     ``.ckpt`` when a path is given, else a seeded random init (an untrained
-    net finds few or no matches on real images)."""
+    net finds few or no matches on real images).  ``preset`` is any name of
+    ``config.PRESETS``; the OT presets (``indoor_ot``, ``outdoor_ot``,
+    ``indoor_ot_buggy_pos_enc``) build the Sinkhorn matcher, whose learned
+    ``coarse_matching.bin_score`` an OT checkpoint carries."""
     dev = resolve_device(device)
     model = LoFTR(get_config(preset).loftr)
     if weights_path is not None:

@@ -14,6 +14,10 @@ activation dtype (``loftr_tpu.models.backbone._BnEvalAffine``).  In
 ``train()`` it normalises with the statistics of the batch it is given (both
 images of every pair, packed), computed in float32, and updates the running
 statistics in place.
+
+``_USE_PALLAS_UPSAMPLE`` (a module switch, default off, as in the JAX
+package) sends the two x2 upsamples of an inference forward through the
+upsample kernel module instead of the two-matmul form.
 """
 from __future__ import annotations
 
@@ -25,6 +29,18 @@ import torch.nn.functional as F
 
 from loftr_tpu_torch.ops.interpolate import upsample2x_align_corners
 from loftr_tpu_torch.utils.derived import derived
+
+
+_USE_PALLAS_UPSAMPLE = False
+
+
+def _upsample(x: torch.Tensor, train: bool) -> torch.Tensor:
+    """x2 align-corners upsample: the kernel module at inference when the
+    module switch is on, else the differentiable two-matmul form."""
+    if _USE_PALLAS_UPSAMPLE and not train and not x.requires_grad:
+        from loftr_tpu_torch.ops.kernels.upsample import upsample2x
+        return upsample2x(x)
+    return upsample2x_align_corners(x)
 
 
 def conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1) -> nn.Conv2d:
@@ -147,10 +163,10 @@ class ResNetFPN_8_2(nn.Module):
         x2 = self.layer2(x1)                                  # 1/4
         x3 = self.layer3(x2)                                  # 1/8
         x3_out = apply_conv(self.layer3_outconv, x3)
-        x3_up = upsample2x_align_corners(x3_out)
+        x3_up = _upsample(x3_out, self.training)
         x2_out = apply_conv(self.layer2_outconv, x2)
         x2_out = apply_fusion(self.layer2_outconv2, x2_out + x3_up)
-        x2_up = upsample2x_align_corners(x2_out)
+        x2_up = _upsample(x2_out, self.training)
         x1_out = apply_conv(self.layer1_outconv, x1)
         x1_out = apply_fusion(self.layer1_outconv2, x1_out + x2_up)
         return x3_out.permute(0, 2, 3, 1), x1_out.permute(0, 2, 3, 1)

@@ -6,6 +6,8 @@ loftr.py:29-75):
   [2] position encoding + flatten to [B, L, C]
   [3] coarse transformer (self/cross x4)          -> coarse-layer kernel
   [4] dual-softmax + mutual-nearest candidates    -> dual-softmax kernel
+      (``match_type="sinkhorn"``: Sinkhorn OT with the learned dustbin score
+      ``coarse_matching.bin_score``                -> Sinkhorn kernel)
       then static top-K selection (K = min(max_matches, L)), or in training
       the random selection with GT padding (K = train_coarse_percent * L)
   [5] 5x5 fine windows at the matches + coarse-context concat
@@ -23,10 +25,13 @@ With the fused focal loss (``loss.use_pallas`` with dual-softmax, dense
 supervision and the focal loss) the candidates come from the dual-softmax
 kernel module without autograd, no [B, L, S] matrix is formed, and the
 result carries the coarse features for the loss; otherwise the
-differentiable ``dual_softmax_conf`` is returned in ``conf_matrix``.
+differentiable ``dual_softmax_conf`` is returned in ``conf_matrix``.  OT
+training always takes the plain ``sinkhorn_conf`` (and, with sparse
+supervision, returns the assignment with its dustbins in
+``conf_matrix_with_bin``).
 
 Submodule names follow the reference state_dict (``backbone``,
-``loftr_coarse``, ``fine_preprocess``, ``loftr_fine``).
+``loftr_coarse``, ``coarse_matching``, ``fine_preprocess``, ``loftr_fine``).
 """
 from __future__ import annotations
 
@@ -62,6 +67,16 @@ class FinePreprocess(nn.Module):
         self.merge_feat = nn.Linear(2 * d_fine, d_fine, bias=True)
 
 
+class CoarseMatching(nn.Module):
+    """Holds the learned dustbin score of the Sinkhorn matcher (the
+    reference's ``coarse_matching.bin_score``)."""
+
+    def __init__(self, init_bin_score: float):
+        super().__init__()
+        self.bin_score = nn.Parameter(
+            torch.tensor(float(init_bin_score), dtype=torch.float32))
+
+
 class Features(NamedTuple):
     feat_c0: torch.Tensor              # [B, L, C] after position encoding
     feat_c1: torch.Tensor              # [B, S, C]
@@ -84,6 +99,11 @@ class LoFTR(nn.Module):
         self.loftr_coarse = LocalFeatureTransformer(
             c.d_model, c.nhead, c.layer_names, c.attention,
             fused_heads=c.fused_heads)
+        mc = config.match_coarse
+        if mc.match_type == "sinkhorn":
+            self.coarse_matching = CoarseMatching(mc.skh_init_bin_score)
+        elif mc.match_type != "dual_softmax":
+            raise NotImplementedError(mc.match_type)
         if f.concat_coarse_feat:
             self.fine_preprocess = FinePreprocess(c.d_model, f.d_model)
         self.loftr_fine = LocalFeatureTransformer(
@@ -147,32 +167,45 @@ class LoFTR(nn.Module):
               gt_valid: Optional[torch.Tensor] = None,
               noise: Optional[dict] = None):
         """[4] coarse matching + selection.  Returns (matches, conf or
-        None)."""
+        None, conf_with_bin or None)."""
         cfg = self.config
         mc = cfg.match_coarse
-        if mc.match_type != "dual_softmax":
-            raise NotImplementedError(
-                f"match_type {mc.match_type!r}: only dual_softmax is ported")
         hw0_c, hw1_c = self._coarse_hw(inp)
-        conf = None
+        conf = conf_with_bin = None
+        ot = mc.match_type == "sinkhorn"
         if self.fused_loss(train) or (mc.use_pallas and not train):
+            f0 = f.feat_c0.detach().contiguous()
+            f1 = f.feat_c1.detach().contiguous()
             with torch.no_grad():
-                cand = M.kernel_mutual_nearest_candidates(
-                    f.feat_c0.detach().contiguous(),
-                    f.feat_c1.detach().contiguous(),
-                    mc.dsmax_temperature, mc.thr, mc.border_rm, hw0_c, hw1_c,
-                    inp.mask0, inp.mask1)
+                if ot:
+                    cand = M.kernel_sinkhorn_candidates(
+                        f0, f1, self.coarse_matching.bin_score, mc.skh_iters,
+                        mc.thr, mc.border_rm, hw0_c, hw1_c, inp.mask0,
+                        inp.mask1, prefilter=mc.skh_prefilter)
+                else:
+                    cand = M.kernel_mutual_nearest_candidates(
+                        f0, f1, mc.dsmax_temperature, mc.thr, mc.border_rm,
+                        hw0_c, hw1_c, inp.mask0, inp.mask1)
         else:
-            conf = M.dual_softmax_conf(f.feat_c0, f.feat_c1,
-                                       mc.dsmax_temperature, f.mask_c0,
-                                       f.mask_c1)
+            if ot:
+                conf, assign = M.sinkhorn_conf(
+                    f.feat_c0, f.feat_c1, self.coarse_matching.bin_score,
+                    mc.skh_iters, f.mask_c0, f.mask_c1,
+                    prefilter=(not train) and mc.skh_prefilter)
+                if mc.sparse_spvs:
+                    conf_with_bin = assign
+            else:
+                conf = M.dual_softmax_conf(f.feat_c0, f.feat_c1,
+                                           mc.dsmax_temperature, f.mask_c0,
+                                           f.mask_c1)
             with torch.no_grad():
                 cand = M.mutual_nearest_candidates(
                     conf.detach(), mc.thr, mc.border_rm, hw0_c, hw1_c,
                     inp.mask0, inp.mask1)
         L, S = f.feat_c0.shape[1], f.feat_c1.shape[1]
         if not train:
-            return M.topk_matches(cand, min(mc.max_matches, L)), conf
+            return (M.topk_matches(cand, min(mc.max_matches, L)), conf,
+                    conf_with_bin)
         if gt_j is None or gt_valid is None:
             raise ValueError("training selection needs the coarse "
                              "supervision (gt_j, gt_valid)")
@@ -191,12 +224,12 @@ class LoFTR(nn.Module):
                 cand, gt_j, gt_valid, generator, k_train,
                 mc.train_pad_num_gt_min, budget=budget,
                 sampling=mc.train_sampling, noise=noise)
-        return matches, conf
+        return matches, conf, conf_with_bin
 
-    def fine(self, f: Features, matches: CoarseMatches, inp: MatchInput,
-             train: bool = False) -> torch.Tensor:
-        """[5] fine windows + coarse context, [6]+[7] fine stage.
-        Returns expec_f [B, K, 3] float32."""
+    def fine_windows(self, f: Features, matches: CoarseMatches,
+                     inp: MatchInput, train: bool = False):
+        """[5] fine windows at the matches, merged with the coarse context.
+        Returns (win0, win1), each [B, K, W*W, C_fine]."""
         cfg = self.config
         pk = cfg.batch_packing
         hw0_c, hw1_c = self._coarse_hw(inp)
@@ -223,13 +256,22 @@ class LoFTR(nn.Module):
                 [win0, c0w[:, :, None, :].expand(B, K, ww, d_f)], dim=-1))
             win1 = apply_linear(fp.merge_feat, torch.cat(
                 [win1, c1w[:, :, None, :].expand(B, K, ww, d_f)], dim=-1))
+        return win0, win1
+
+    def fine(self, f: Features, matches: CoarseMatches, inp: MatchInput,
+             train: bool = False) -> torch.Tensor:
+        """[5] fine windows + coarse context, [6]+[7] fine stage.
+        Returns expec_f [B, K, 3] float32."""
+        cfg = self.config
+        win0, win1 = self.fine_windows(f, matches, inp, train)
+        B, K, ww, d_f = win0.shape
         if cfg.fine.use_pallas_train if train else cfg.fine.use_pallas:
             # raises for a topology other than the kernel's ('self', 'cross')
             return fused_fine_forward(self.loftr_fine, win0, win1,
                                       trainable=train)
         f0, f1 = self.loftr_fine(win0.reshape(B * K, ww, d_f),
                                  win1.reshape(B * K, ww, d_f),
-                                 batch_packing=pk)
+                                 batch_packing=cfg.batch_packing)
         return fine_match(f0.reshape(B, K, ww, d_f),
                           f1.reshape(B, K, ww, d_f))
 
@@ -259,8 +301,8 @@ class LoFTR(nn.Module):
         hw0_c, hw1_c = self._coarse_hw(inp)
         with torch.set_grad_enabled(train and torch.is_grad_enabled()):
             feats = self.coarse(self.extract(inp), train)
-            matches, conf = self.match(feats, inp, train, generator, gt_j,
-                                       gt_valid, noise)
+            matches, conf, conf_with_bin = self.match(
+                feats, inp, train, generator, gt_j, gt_valid, noise)
             mkpts0_c, mkpts1_c = M.matches_to_kpts(
                 matches, hw0_c, hw1_c, res_c, inp.scale0, inp.scale1)
             expec_f = self.fine(feats, matches, inp, train)
@@ -272,5 +314,6 @@ class LoFTR(nn.Module):
                            mkpts1_c=mkpts1_c, mkpts0_f=mkpts0_f,
                            mkpts1_f=mkpts1_f, expec_f=expec_f,
                            conf_matrix=conf,
+                           conf_matrix_with_bin=conf_with_bin,
                            feat_c0=feats.feat_c0 if fused else None,
                            feat_c1=feats.feat_c1 if fused else None)

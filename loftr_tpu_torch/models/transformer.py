@@ -11,7 +11,10 @@ LayerNorm runs in float32 and casts back, as in the JAX package.
 
 ``fused_heads`` selects ``linear_attention_fused_heads`` (the same values in
 wide products) while the module is in ``train()`` mode; ``eval()`` keeps the
-per-head form.
+per-head form.  ``fused_window_attn`` (default off, inference) sends the
+attention of a layer called without masks on equal-shape ``x`` and
+``source`` (the fine stage's windows) through the window-attention kernel
+module.
 """
 from __future__ import annotations
 
@@ -41,11 +44,13 @@ def layer_norm_f32(m: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 
 class LoFTREncoderLayer(nn.Module):
-    def __init__(self, d_model: int, nhead: int, fused_heads: bool = False):
+    def __init__(self, d_model: int, nhead: int, fused_heads: bool = False,
+                 fused_window_attn: bool = False):
         super().__init__()
         self.nhead = nhead
         self.d_model = d_model
         self.fused_heads = fused_heads
+        self.fused_window_attn = fused_window_attn
         self.q_proj = nn.Linear(d_model, d_model, bias=False)
         self.k_proj = nn.Linear(d_model, d_model, bias=False)
         self.v_proj = nn.Linear(d_model, d_model, bias=False)
@@ -62,12 +67,21 @@ class LoFTREncoderLayer(nn.Module):
         b, l, c = x.shape
         h = self.nhead
         d = c // h
-        q = apply_linear(self.q_proj, x).reshape(b, l, h, d)
-        k = apply_linear(self.k_proj, source).reshape(b, -1, h, d)
-        v = apply_linear(self.v_proj, source).reshape(b, -1, h, d)
-        attn = (linear_attention_fused_heads
-                if self.fused_heads and self.training else linear_attention)
-        message = attn(q, k, v, q_mask=x_mask, kv_mask=source_mask)
+        q = apply_linear(self.q_proj, x)
+        k = apply_linear(self.k_proj, source)
+        v = apply_linear(self.v_proj, source)
+        if (self.fused_window_attn and x_mask is None and source_mask is None
+                and x.shape == source.shape):
+            from loftr_tpu_torch.ops.kernels.window_attention import \
+                window_linear_attention
+            message = window_linear_attention(q, k, v, nheads=h)
+        else:
+            attn = (linear_attention_fused_heads
+                    if self.fused_heads and self.training
+                    else linear_attention)
+            message = attn(q.reshape(b, l, h, d), k.reshape(b, -1, h, d),
+                           v.reshape(b, -1, h, d), q_mask=x_mask,
+                           kv_mask=source_mask)
         message = apply_linear(self.merge, message.reshape(b, l, c))
         message = layer_norm_f32(self.norm1, message).to(x.dtype)
         y = torch.cat([x, message], dim=-1)
@@ -109,7 +123,8 @@ class LocalFeatureTransformer(nn.Module):
     """A named sequence of 'self'/'cross' encoder layers (plain path)."""
 
     def __init__(self, d_model: int, nhead: int, layer_names: Sequence[str],
-                 attention: str = "linear", fused_heads: bool = False):
+                 attention: str = "linear", fused_heads: bool = False,
+                 fused_window_attn: bool = False):
         super().__init__()
         if attention != "linear":
             raise NotImplementedError(
@@ -118,7 +133,7 @@ class LocalFeatureTransformer(nn.Module):
         self.nhead = nhead
         self.layer_names = tuple(layer_names)
         self.layers = nn.ModuleList(
-            [LoFTREncoderLayer(d_model, nhead, fused_heads)
+            [LoFTREncoderLayer(d_model, nhead, fused_heads, fused_window_attn)
              for _ in self.layer_names])
 
     def forward(self, feat0, feat1, mask0=None, mask1=None,

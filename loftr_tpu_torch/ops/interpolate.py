@@ -13,17 +13,28 @@ import torch
 
 
 @functools.lru_cache(maxsize=64)
-def _interp_matrix(n_in: int, n_out: int) -> np.ndarray:
-    """[n_out, n_in] align-corners linear interpolation weights."""
+def interp_taps(n_in: int, n_out: int):
+    """The two taps of every output position of align-corners linear
+    interpolation: (lo, hi int32 indices, w_lo, w_hi float32) [n_out]."""
     if n_in == 1:
-        return np.ones((n_out, 1), np.float32)
+        zero = np.zeros(n_out, np.int32)
+        return (zero, zero, np.ones(n_out, np.float32),
+                np.zeros(n_out, np.float32))
     src = np.arange(n_out, dtype=np.float64) * (n_in - 1) / (n_out - 1)
     lo = np.clip(np.floor(src).astype(np.int64), 0, n_in - 2)
     frac = src - lo
-    w = np.zeros((n_out, n_in), np.float64)
-    w[np.arange(n_out), lo] = 1.0 - frac
-    w[np.arange(n_out), lo + 1] = frac
-    return w.astype(np.float32)
+    return (lo.astype(np.int32), (lo + 1).astype(np.int32),
+            (1.0 - frac).astype(np.float32), frac.astype(np.float32))
+
+
+@functools.lru_cache(maxsize=64)
+def _interp_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """[n_out, n_in] align-corners linear interpolation weights."""
+    lo, hi, w_lo, w_hi = interp_taps(n_in, n_out)
+    w = np.zeros((n_out, n_in), np.float32)
+    w[np.arange(n_out), hi] = w_hi
+    w[np.arange(n_out), lo] = w_lo
+    return w
 
 
 def upsample2x_align_corners(x: torch.Tensor) -> torch.Tensor:

@@ -39,6 +39,9 @@ SIGNATURES = {
     "loftr_dual_softmax_stats": [_P] * 12 + [_I] * 5 + [_F, _I, _P],
     "loftr_focal_fwd": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_I, _P],
     "loftr_focal_bwd": [_P] * 18 + [_I] * 5 + [_F] * 3 + [_I, _P],
+    "loftr_sinkhorn": [_P] * 21 + [_I] * 7 + [_F, _I, _P],
+    "loftr_window_attention": [_P] * 4 + [_I] * 4 + [_F, _I, _P],
+    "loftr_upsample2x": [_P] * 10 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

@@ -1,11 +1,12 @@
-"""Coarse matching: dual-softmax confidence and static-capacity selection.
+"""Coarse matching: confidence matrices and static-capacity selection.
 
-``loftr_tpu.ops.matching`` without its Sinkhorn half: the plain
-``dual_softmax_conf`` + ``mutual_nearest_candidates`` path, the kernel path
-``kernel_mutual_nearest_candidates`` (the JAX package's
-``pallas_mutual_nearest_candidates``), fixed-capacity ``topk_matches``,
-the training selection ``select_train_matches`` with ``mask_match_budget``,
-and ``matches_to_kpts``.
+``loftr_tpu.ops.matching``: the plain ``dual_softmax_conf`` /
+``sinkhorn_conf`` + ``mutual_nearest_candidates`` paths, the kernel paths
+``kernel_mutual_nearest_candidates`` and ``kernel_sinkhorn_candidates`` (the
+JAX package's ``pallas_mutual_nearest_candidates`` and
+``pallas_sinkhorn_candidates``), fixed-capacity ``topk_matches``, the
+training selection ``select_train_matches`` with ``mask_match_budget``, and
+``matches_to_kpts``.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from loftr_tpu_torch.ops.sinkhorn import log_optimal_transport
 from loftr_tpu_torch.structs import CoarseMatches
 
 INF = 1e9
@@ -33,6 +35,33 @@ def dual_softmax_conf(feat0: torch.Tensor, feat1: torch.Tensor,
         pair = mask0[:, :, None].bool() & mask1[:, None, :].bool()
         sim = torch.where(pair, sim, torch.full_like(sim, -INF))
     return torch.softmax(sim, dim=1) * torch.softmax(sim, dim=2)
+
+
+def sinkhorn_conf(feat0: torch.Tensor, feat1: torch.Tensor,
+                  bin_score: torch.Tensor, iters: int,
+                  mask0: Optional[torch.Tensor] = None,
+                  mask1: Optional[torch.Tensor] = None,
+                  prefilter: bool = False):
+    """Sinkhorn-OT confidence (the reference's coarse_matching.py:121-143).
+
+    Returns (conf [B, L, S], assign_with_bin [B, L+1, S+1]).  ``prefilter``
+    zeroes the rows and columns whose argmax in the full assignment is the
+    dustbin (evaluation only in the reference)."""
+    c = feat0.shape[-1]
+    scale = 1.0 / c ** 0.5
+    sim = torch.einsum("blc,bsc->bls", (feat0 * scale).float(),
+                       (feat1 * scale).float())
+    if mask0 is not None:
+        pair = mask0[:, :, None].bool() & mask1[:, None, :].bool()
+        sim = torch.where(pair, sim, torch.full_like(sim, -INF))
+    assign = torch.exp(log_optimal_transport(sim, bin_score, iters))
+    conf = assign[:, :-1, :-1]
+    if prefilter:
+        L, S = conf.shape[1], conf.shape[2]
+        filt0 = assign.argmax(dim=2)[:, :-1] == S            # [B, L]
+        filt1 = assign.argmax(dim=1)[:, :-1] == L            # [B, S]
+        conf = conf.masked_fill(filt0[:, :, None] | filt1[:, None, :], 0.0)
+    return conf, assign
 
 
 def _border_row_mask(hc: int, wc: int, border: int,
@@ -87,6 +116,26 @@ def mutual_nearest_candidates(conf: torch.Tensor, thr: float, border_rm: int,
     return CandidateMatches(j_ids=j_ids, mconf=mconf, valid=valid)
 
 
+def _candidates_from_best(best_val, best_j, colconf, thr: float,
+                          border_rm: int, hw0_c: tuple, hw1_c: tuple,
+                          mask0, mask1) -> CandidateMatches:
+    """The epilogue both matching kernels share: per-row best value and
+    column, per-column maximum -> threshold, border and mutual-nearest
+    tests."""
+    B, L = best_val.shape
+    S = colconf.shape[1]
+    dev = best_val.device
+    row_ok = _border_row_mask(hw0_c[0], hw0_c[1], border_rm, mask0,
+                              dev).expand(B, L)
+    col_ok = _border_row_mask(hw1_c[0], hw1_c[1], border_rm, mask1,
+                              dev).expand(B, S)
+    jl = best_j.long()
+    valid = (best_val > thr) & row_ok & torch.gather(col_ok, 1, jl) & \
+        (best_val >= torch.gather(colconf, 1, jl))
+    mconf = torch.where(valid, best_val, torch.zeros_like(best_val))
+    return CandidateMatches(j_ids=best_j, mconf=mconf, valid=valid)
+
+
 def kernel_mutual_nearest_candidates(
         feat0: torch.Tensor, feat1: torch.Tensor, temperature: float,
         thr: float, border_rm: int, hw0_c: tuple, hw1_c: tuple,
@@ -104,16 +153,30 @@ def kernel_mutual_nearest_candidates(
     m1 = None if mask1 is None else mask1.reshape(B, S)
     best_val, best_j, colconf = fused_dual_softmax_match(
         feat0, feat1, temperature, m0, m1)
+    return _candidates_from_best(best_val, best_j, colconf, thr, border_rm,
+                                 hw0_c, hw1_c, mask0, mask1)
 
-    row_ok = _border_row_mask(hw0_c[0], hw0_c[1], border_rm, mask0,
-                              feat0.device).expand(B, L)
-    col_ok = _border_row_mask(hw1_c[0], hw1_c[1], border_rm, mask1,
-                              feat0.device).expand(B, S)
-    jl = best_j.long()
-    valid = (best_val > thr) & row_ok & torch.gather(col_ok, 1, jl) & \
-        (best_val >= torch.gather(colconf, 1, jl))
-    mconf = torch.where(valid, best_val, torch.zeros_like(best_val))
-    return CandidateMatches(j_ids=best_j, mconf=mconf, valid=valid)
+
+def kernel_sinkhorn_candidates(
+        feat0: torch.Tensor, feat1: torch.Tensor, bin_score: torch.Tensor,
+        iters: int, thr: float, border_rm: int, hw0_c: tuple, hw1_c: tuple,
+        mask0: Optional[torch.Tensor] = None,
+        mask1: Optional[torch.Tensor] = None,
+        prefilter: bool = False) -> CandidateMatches:
+    """CandidateMatches through the Sinkhorn kernel module: the same
+    function as sinkhorn_conf + mutual_nearest_candidates without the
+    coupling matrix on the CUDA path; ``prefilter`` applies the
+    skh_prefilter rule exactly (one more pass in the kernel)."""
+    from loftr_tpu_torch.ops.kernels.sinkhorn import fused_sinkhorn_match
+
+    B, L, _ = feat0.shape
+    S = feat1.shape[1]
+    m0 = None if mask0 is None else mask0.reshape(B, L)
+    m1 = None if mask1 is None else mask1.reshape(B, S)
+    best_val, best_j, colconf, _, _ = fused_sinkhorn_match(
+        feat0, feat1, bin_score, iters, m0, m1, prefilter=prefilter)
+    return _candidates_from_best(best_val, best_j, colconf, thr, border_rm,
+                                 hw0_c, hw1_c, mask0, mask1)
 
 
 def _top_k(score: torch.Tensor, k: int):

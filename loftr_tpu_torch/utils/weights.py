@@ -32,6 +32,10 @@ def _same(w: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(w)
 
 
+def _scalar(w: np.ndarray) -> np.ndarray:
+    return np.array(w, np.float32).reshape(())
+
+
 _BN = {("params", "scale"): "weight", ("params", "bias"): "bias",
        ("batch_stats", "mean"): "running_mean",
        ("batch_stats", "var"): "running_var"}
@@ -83,7 +87,7 @@ def _map_leaf(coll: str, path: list):
         if leaf == "bias":
             return f"fine_preprocess.{top}.bias", _same
     elif top == "bin_score" and coll == "params":
-        return "coarse_matching.bin_score", _same
+        return "coarse_matching.bin_score", _scalar
     raise KeyError(leaf)
 
 
@@ -127,8 +131,10 @@ def load_checkpoint_state(path: str) -> Dict[str, torch.Tensor]:
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random init with the JAX package's initialiser families:
     convs variance-scaling(2, fan_out, truncated normal), linears Xavier
-    uniform with zero bias, norms at identity.  The numbers differ from
-    JAX's (another generator); only the distributions match."""
+    uniform with zero bias, norms at identity; the Sinkhorn ``bin_score``
+    keeps the configured ``skh_init_bin_score`` it was built with.  The
+    numbers differ from JAX's (another generator); only the distributions
+    match."""
     g = torch.Generator().manual_seed(seed)
     for m in model.modules():
         if isinstance(m, nn.Conv2d):

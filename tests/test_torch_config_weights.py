@@ -62,11 +62,32 @@ def _flat(tree, prefix=()):
 def test_state_dict_round_trip_through_jax_converter():
     """JAX init -> state_dict_from_jax -> convert_torch_state_dict gives
     back the original tree, leaf for leaf; the port loads it strictly."""
-    cfg = jcfg.get_config("indoor_ds", SMALL)
+    _round_trip("indoor_ds")
+
+
+@pytest.mark.parametrize("preset", ["indoor_ot", "outdoor_ot",
+                                    "indoor_ot_buggy_pos_enc"])
+def test_bin_score_round_trips_through_jax_converter(preset):
+    """The OT presets carry the scalar ``bin_score`` both ways."""
+    _round_trip(preset)
+
+
+def _round_trip(preset):
+    cfg = jcfg.get_config(preset, SMALL)
     v = _jax_init(cfg)
+    ot = preset != "indoor_ds"
+    assert ("bin_score" in v["params"]) == ot
+    if ot:
+        v["params"]["bin_score"] = np.float32(0.37)
     sd = state_dict_from_jax(v)
-    LoFTR(tcfg.get_config("indoor_ds", SMALL).loftr).load_state_dict(
-        sd, strict=True)
+    model = LoFTR(tcfg.get_config(preset, SMALL).loftr)
+    model.load_state_dict(sd, strict=True)
+    assert ("coarse_matching.bin_score" in sd) == ot
+    if ot:
+        assert sd["coarse_matching.bin_score"].shape == ()
+        assert model.coarse_matching.bin_score.item() == np.float32(0.37)
+        assert isinstance(model.coarse_matching.bin_score,
+                          torch.nn.Parameter)
     back = convert_torch_state_dict({k: t.numpy() for k, t in sd.items()})
     want = dict(_flat(v))
     got = dict(_flat(back))
@@ -91,6 +112,19 @@ def test_full_width_indoor_ds_keys_and_shapes():
     assert len(sd) == len(model.state_dict())
 
 
+def test_bin_score_initialises_from_the_config():
+    from loftr_tpu_torch.utils.weights import init_weights
+    over = {"loftr": {**SMALL["loftr"], "match_coarse": {
+        "max_matches": 16, "skh_init_bin_score": 0.25}}}
+    model = init_weights(LoFTR(tcfg.get_config("indoor_ot", over).loftr), 3)
+    assert model.coarse_matching.bin_score.item() == 0.25
+    assert not hasattr(LoFTR(tcfg.get_config("indoor_ds", SMALL).loftr),
+                       "coarse_matching")
+    with pytest.raises(NotImplementedError):
+        LoFTR(tcfg.get_config("indoor_ds", {"loftr": {"match_coarse": {
+            "match_type": "nearest"}}}).loftr)
+
+
 def test_unmapped_leaf_raises():
     with pytest.raises(KeyError):
         state_dict_from_jax({"params": {"mystery": {"kernel": np.zeros(2)}}})
@@ -102,6 +136,10 @@ def test_import_leaves_jax_out():
             "loftr_tpu_torch.ops.kernels.dual_softmax, "
             "loftr_tpu_torch.ops.kernels.fine_stage, "
             "loftr_tpu_torch.ops.kernels.focal_loss, "
+            "loftr_tpu_torch.ops.kernels.sinkhorn, "
+            "loftr_tpu_torch.ops.kernels.window_attention, "
+            "loftr_tpu_torch.ops.kernels.upsample, "
+            "loftr_tpu_torch.ops.sinkhorn, "
             "loftr_tpu_torch.ops.fine_stage_hybrid, loftr_tpu_torch.losses, "
             "loftr_tpu_torch.supervision, loftr_tpu_torch.train.optim, "
             "loftr_tpu_torch.train.trainer, "
@@ -147,8 +185,10 @@ def test_no_jax_imports_in_port_sources(root):
         names = {os.path.relpath(f, path) for f in files}
         assert {"losses.py", "supervision.py", "train/trainer.py",
                 "train/optim.py", "train/checkpoint.py",
-                "ops/kernels/focal_loss.py",
-                "ops/fine_stage_hybrid.py"} <= names
+                "ops/kernels/focal_loss.py", "ops/fine_stage_hybrid.py",
+                "ops/sinkhorn.py", "ops/kernels/sinkhorn.py",
+                "ops/kernels/window_attention.py",
+                "ops/kernels/upsample.py"} <= names
 
 
 def test_load_matcher_default_device_needs_cuda(monkeypatch):

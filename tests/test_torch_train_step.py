@@ -44,11 +44,11 @@ B, L, K_TRAIN = 2, 64, 8
 BATCH_SEED = 11
 
 
-def _cfg(get, fused=True, **loftr):
+def _cfg(get, fused=True, preset="indoor_ds", **loftr):
     loss = {"use_pallas": fused}
     if get is jax_get_config:
         loss["force_pallas_cpu"] = fused
-    return get("indoor_ds").replaced({
+    return get(preset).replaced({
         "loftr": {**TINY, "loss": loss, **loftr}, "trainer": TRAINER})
 
 
@@ -57,12 +57,12 @@ def _variables(state):
                                      "batch_stats": state.batch_stats})
 
 
-def build_ref(seed):
+def build_ref(seed, preset="indoor_ds"):
     """The JAX side: states and scalars after steps 1 and 2, the selection
     noise of both steps, step 1's gradients and selected matches."""
     batch = train_batch(B=B, seed=seed)
     jb = to_jax(batch)
-    jt = JaxTrainer(_cfg(jax_get_config))
+    jt = JaxTrainer(_cfg(jax_get_config, preset=preset))
     s0 = jt.init_state(jax.random.PRNGKey(0),
                        jax.tree.map(lambda x: x[:1], jb))
     step = jax.jit(jt._train_step)
@@ -106,18 +106,24 @@ def ref():
     return build_ref(BATCH_SEED)
 
 
-def _port_state(ref, fused=True, **loftr):
-    trainer = Trainer(_cfg(get_config, fused, **loftr), device="cpu")
+def _port_state(ref, fused=True, preset="indoor_ds", **loftr):
+    trainer = Trainer(_cfg(get_config, fused, preset, **loftr), device="cpu")
     return trainer, trainer.init_state(
         seed=0, state_dict=state_dict_from_jax(ref["init"]))
 
 
-def _assert_state(state, variables, before, lr):
+def _assert_state(state, variables, before, lr, grads=None):
     """Every parameter and running statistic at rtol 2e-3 / atol 2e-5, and
     every parameter's movement since ``before`` within half a learning
     rate of the JAX one: an Adam update moves an element by about ``lr``,
     so an update that is missing or has the wrong sign is a whole or two
-    learning rates off, wherever rtol * |w| would hide it."""
+    learning rates off, wherever rtol * |w| would hide it.
+
+    With ``grads`` (the JAX gradients of a first step): Adam's first update
+    is ``lr * g / (|g| + eps)``, about ``lr * sign(g)``, so an element whose
+    gradient lies below the gradient comparison's own atol (1e-3 of the
+    tensor's largest entry) has no determined sign; those elements are held
+    to 2.2 learning rates, all others as above."""
     want = state_dict_from_jax(variables)
     got = state.module.state_dict()
     assert set(got) == set(want)
@@ -126,12 +132,19 @@ def _assert_state(state, variables, before, lr):
         if k.endswith("num_batches_tracked"):
             continue
         g, w = got[k].numpy(), w.numpy()
-        np.testing.assert_allclose(g, w, rtol=2e-3, atol=2e-5, err_msg=k)
+        sure = np.ones(w.shape, bool)
+        if grads is not None and k in params:
+            gr = np.abs(grads[k].numpy())
+            sure = gr > 1e-3 * gr.max()
+            assert sure.mean() > 0.5, k
+            np.testing.assert_allclose(g, w, rtol=0, atol=2.2 * lr, err_msg=k)
+        np.testing.assert_allclose(g[sure], w[sure], rtol=2e-3, atol=2e-5,
+                                   err_msg=k)
         if k in params:
             b = before[k].numpy()
             assert np.abs(w - b).max() > 0.5 * lr, k      # JAX did move it
-            np.testing.assert_allclose(g - b, w - b, rtol=0, atol=0.5 * lr,
-                                       err_msg=k)
+            np.testing.assert_allclose((g - b)[sure], (w - b)[sure], rtol=0,
+                                       atol=0.5 * lr, err_msg=k)
 
 
 def _assert_scalars(got, want):
@@ -188,6 +201,53 @@ def test_two_train_steps_match_jax(ref):
     assert not torch.equal(before[k], after[k])           # it did update
     assert not torch.equal(before["backbone.bn1.running_var"],
                            after["backbone.bn1.running_var"])
+
+
+@pytest.fixture(scope="module")
+def ref_ot():
+    return build_ref(BATCH_SEED, preset="indoor_ot")
+
+
+def test_ot_train_step_matches_jax(ref_ot):
+    """An ``indoor_ot`` step (dense supervision, focal loss on the
+    materialised Sinkhorn confidence): the selected matches exactly, every
+    gradient, ``coarse_matching.bin_score`` included, at the bars of
+    test_gradients_match_jax, then the step's scalars and state.  AdamW
+    decays the scalar like every other parameter, as ``optax.adamw``
+    does."""
+    ref = ref_ot
+    batch = to_torch(ref["batch"])
+    trainer, state = _port_state(ref, preset="indoor_ot")
+    loss, _, out = trainer.forward_loss(state, batch, ref["noise"][0])
+    assert out.conf_matrix is not None and out.feat_c0 is None
+    assert out.conf_matrix_with_bin is None           # dense supervision
+    for name in ("i_ids", "j_ids", "mask", "gt_mask"):
+        np.testing.assert_array_equal(getattr(out.coarse, name).numpy(),
+                                      getattr(ref["coarse"], name), name)
+    names = [n for n, _ in state.module.named_parameters()]
+    assert "coarse_matching.bin_score" in names
+    assert set(names) == set(ref["grads"])
+    got = torch.autograd.grad(loss, list(state.module.parameters()))
+    for n, g in zip(names, got):
+        w = ref["grads"][n].numpy()
+        assert g.shape == w.shape, n
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-3,
+                                   atol=1e-3 * float(np.abs(w).max()),
+                                   err_msg=n)
+    g_bin = dict(zip(names, got))["coarse_matching.bin_score"]
+    assert torch.isfinite(g_bin) and float(g_bin) != 0.0
+
+    trainer, state = _port_state(ref, preset="indoor_ot")
+    before = {k: v.clone() for k, v in state.module.state_dict().items()}
+    state, sc = trainer.train_step(state, batch, ref["noise"][0])
+    _assert_scalars(sc, ref["scalars"][0])
+    _assert_state(state, ref["after"][0], before, sc["lr"], ref["grads"])
+    k = "coarse_matching.bin_score"
+    assert not torch.equal(before[k], state.module.state_dict()[k])
+    groups = state.optimizer.param_groups
+    assert len(groups) == 1 and groups[0]["weight_decay"] == 0.1
+    assert any(p is state.module.coarse_matching.bin_score
+               for p in groups[0]["params"])
 
 
 def test_fused_and_dense_routes_agree(ref):

@@ -2,10 +2,11 @@
 """Device-time breakdown of the PyTorch/CUDA port's flagship forward, or
 of one training step.
 
-    python3 tools/profile_torch_port.py [--batch 1 8] [--iters 5]
-    python3 tools/profile_torch_port.py --train [--batch 2] [--iters 3]
+    python3 tools/profile_torch_port.py [--ot] [--batch 1 8] [--iters 5]
+    python3 tools/profile_torch_port.py [--ot] --train [--batch 2] [--iters 3]
 
-Runs ``indoor_ds`` bf16 at 640x480 (seeded random weights) under
+Runs ``indoor_ds`` (with ``--ot``: ``indoor_ot``, the Sinkhorn matcher) bf16
+at 640x480 (seeded random weights) under
 ``torch.profiler`` on one CUDA device and prints, per batch size, one JSON
 line: wall ms per forward (with ``--train``: per ``Trainer.train_step`` on
 a seeded batch), the summed device-kernel ms, the device idle share
@@ -32,6 +33,8 @@ def main(argv=None):
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--train", action="store_true",
                     help="profile Trainer.train_step instead of the forward")
+    ap.add_argument("--ot", action="store_true",
+                    help="the indoor_ot preset instead of indoor_ds")
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
 
@@ -50,13 +53,15 @@ def main(argv=None):
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=30).stdout.strip()
     rng = np.random.RandomState(0)
+    preset = "indoor_ot" if args.ot else "indoor_ds"
     if not args.train:
-        model = with_config(load_matcher(seed=0), {"dtype": "bfloat16"})
+        model = with_config(load_matcher(preset=preset, seed=0),
+                            {"dtype": "bfloat16"})
     for B in args.batch or ([2] if args.train else [1, 8]):
         if args.train:
             import chip_smoke
             from loftr_tpu_torch.train.trainer import Trainer
-            trainer = Trainer(chip_smoke.train_config("bfloat16", B),
+            trainer = Trainer(chip_smoke.train_config("bfloat16", B, preset),
                               batch_size_per_device=B)
             state = trainer.init_state(seed=0)
             batch = chip_smoke.train_batch(0, B).to("cuda")
@@ -89,7 +94,7 @@ def main(argv=None):
         dev_ms = total / 1e3 / args.iters
         print(json.dumps({
             "device": smi, "what": "train_step" if args.train else "forward",
-            "batch": B, "wall_ms": wall,
+            "preset": preset, "batch": B, "wall_ms": wall,
             "device_kernel_ms": dev_ms,
             "device_idle_share": max(0.0, 1.0 - dev_ms / wall),
             "top": [{"kernel": k[:90], "ms": us / 1e3 / args.iters,
