@@ -8,7 +8,9 @@ Phases, each of which must pass (any failure exits non-zero):
      (the kernels build from ``loftr_tpu_torch/csrc`` at first use);
   2. each CUDA kernel against its plain PyTorch version on the card, at the
      shapes of the indoor_ds 640x480 main paths, in float32 and bfloat16
-     (the focal-loss kernels: sums and both gradients at B=2, the training
+     (the coarse layer also at ragged masked lengths, and timed at both of
+     its launch shapes, self [2,4800,256] and cross [1,4800,256]; the
+     focal-loss kernels: sums and both gradients at B=2, the training
      batch; the hybrid fine stage: its gradients against autograd of the
      plain fine stage; the Sinkhorn kernel at B=2 and B=1, masked and
      unmasked, ``prefilter`` off and on; the window-attention and upsample
@@ -16,7 +18,8 @@ Phases, each of which must pass (any failure exits non-zero):
   3. the inference slice in float32, card (kernels) against CPU (plain);
   4. the flagship indoor_ds preset in bfloat16 at 640x480: ``match_pair``
      at B=1 and the batched model call at B=8, timed with CUDA events, with
-     the per-stage split and peak memory;
+     the per-stage split (the coarse stage also with ``coarse.use_pallas``
+     off, the plain layer stack) and peak memory;
   5. one float32 ``Trainer.train_step`` at indoor_ds width, 640x480, B=2:
      card (kernels) against CPU (plain versions), same weights, batch and
      selection noise;
@@ -87,6 +90,62 @@ def cuda_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters=10):
+    """Device time per call of ``fn`` from the profiler, by kernel, with the
+    sum under "total"; None when the profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", 0) or 0
+        if t > 0:
+            base = (e.key.replace("(anonymous namespace)::", "")
+                    .split("(")[0].replace("void ", ""))
+            name = (base[len("loftr::"):] if base.startswith("loftr::")
+                    else base.split("<")[0].split("::")[-1])
+            per[name] = per.get(name, 0.0) + t / iters / 1e3
+    if not per:
+        return None
+    return {"total": sum(per.values()), **per}
+
+
+def ptxas_summary():
+    """From the loaded kernel library's ``ptxas -v`` build log: registers of
+    each kernel of coarse_layer.cu, and every kernel of any source that
+    spills."""
+    import re
+    from loftr_tpu_torch.ops.kernels import _build
+    path = os.path.join(_build.build_dir, "build.log")
+    if not os.path.exists(path):
+        return None
+    regs, spills, src, name = {}, [], None, None
+    for line in open(path):
+        if line.startswith("== "):
+            src = line[3:].strip()
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name and (int(m.group(1)) or int(m.group(2))):
+            spills.append(f"{src}:{name}")
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and src == "coarse_layer.cu":
+            k = re.search(r"(apply_bf16|apply_kernel|kv_partial_bf16|"
+                          r"kv_partial_kernel|kv_reduce_kernel)"
+                          r"(?:ILi(\d+)E)?", name)
+            short = (name if k is None else k.group(1) + (
+                f"<{k.group(2)}>" if k.group(2) else ""))
+            regs[short] = int(m.group(1))
+    return {"coarse_layer_registers": regs, "spilling_kernels": spills}
+
+
 def bound_ms(flops, nbytes, peak_flops):
     t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
@@ -136,6 +195,14 @@ def kernel_checks(dev, log, results):
                             rng.randn(1, L, C) * 0.5,
                             rng.rand(1, L) > 0.2, rng.rand(1, L) > 0.2),
     }
+    # lengths that are no multiple of the 64-row source tile or of either
+    # apply tile (48 rows at B=1, 80 at B=2), masked; their own generator,
+    # so that the other kernels' inputs stay as they were
+    rr = np.random.RandomState(1)
+    for b in (1, 2):
+        cases[f"ragged_B{b}_masked"] = (
+            rr.randn(b, L - 100, C) * 0.5, rr.randn(b, L - 50, C) * 0.5,
+            rr.rand(b, L - 100) > 0.2, rr.rand(b, L - 50) > 0.2)
     # tolerances: float32 -- the bar of the JAX kernel's own tests
     # (2e-4, test_coarse_layer_fused.py), sums in another order; bfloat16 --
     # a different summation order can flip one bf16 rounding of an
@@ -164,25 +231,44 @@ def kernel_checks(dev, log, results):
             emit(rec, log)
             check(ok, f"coarse_layer {name} {dt} disagrees: {rec}")
             errA[(name, dt)] = float(d.max())
-    # timing at the packed-self shape in bf16 (the main path's largest call)
-    xt = torch.from_numpy(cases["self_B2"][0]).to(dev, bf16)
+    # timing in bf16 at the main path's two launch shapes: the packed self
+    # layers (x = src [2,4800,256]) and each cross direction ([1,4800,256]);
+    # ms: CUDA events around back-to-back wrapper calls (host included),
+    # device_ms: the profiler's kernel time per call
     packed = KC.pack_weights(wA, bf16)
-    ms = cuda_ms(lambda: KA.fused_coarse_layer(xt, xt, wA, None, None, 8,
-                                               packed=packed))
-    plain = cuda_ms(lambda: KA.coarse_layer_plain(xt, xt, wA, None, None, 8),
-                    iters=5)
-    # per x row: q, merge, FFN (8 C^2 MACs), per-head KV apply and
-    # normaliser; per source row: k, v (2 C^2) and the per-head KV blocks.
-    # Bytes: x, src and out once each, the weights once.
-    rows = 2 * L
-    flops = 2 * (rows * (8 * C * C + C * (C // 8) + C)
-                 + rows * (2 * C * C + C * (C // 8)))
-    nbytes = 2 * rows * C * 2 + rows * C * 2 + 10 * C * C * 2 + 4 * C * 4
-    b, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+    tA = {}
+    for name in ("self_B2", "cross_B1"):
+        xt = torch.from_numpy(cases[name][0]).to(dev, bf16)
+        st = (xt if cases[name][1] is None
+              else torch.from_numpy(cases[name][1]).to(dev, bf16))
+
+        def run():
+            return KA.fused_coarse_layer(xt, st, wA, None, None, 8,
+                                         packed=packed)
+        # per x row: q, merge, FFN (8 C^2 MACs), per-head KV apply and
+        # normaliser; per source row: k, v (2 C^2) and the per-head KV
+        # blocks.  Bytes: x, src and out once each, the weights once.
+        rows = xt.shape[0] * L
+        flops = 2 * (rows * (8 * C * C + C * (C // 8) + C)
+                     + rows * (2 * C * C + C * (C // 8)))
+        nbytes = 2 * rows * C * 2 + rows * C * 2 + 10 * C * C * 2 + 4 * C * 4
+        b, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+        rec = {"ms": cuda_ms(run, iters=20), "device_ms": device_ms(run),
+               "plain_ms": cuda_ms(lambda: KA.coarse_layer_plain(
+                   xt, st, wA, None, None, 8), iters=5),
+               "bound_ms": b, "bound_by": by}
+        emit({"phase": 2, "kernel": "coarse_layer", "timing": name, **rec},
+             log)
+        tA[name] = rec
+    sB, cB = tA["self_B2"], tA["cross_B1"]
     results["coarse_layer"] = dict(
-        max_abs_err=errA[("self_B2", bf16)], ms=ms, plain_ms=plain,
-        bound_ms=b, bound_by=by, library_ms=None,
-        bound_unit="bf16 tensor cores", shape="x=src [2,4800,256] bf16")
+        max_abs_err=errA[("self_B2", bf16)], ms=sB["ms"],
+        plain_ms=sB["plain_ms"], bound_ms=sB["bound_ms"],
+        bound_by=sB["bound_by"], library_ms=None,
+        bound_unit="bf16 tensor cores", shape="x=src [2,4800,256] bf16",
+        device_ms=(sB["device_ms"] or {}).get("total"), ms_cross_B1=cB["ms"],
+        device_ms_cross_B1=(cB["device_ms"] or {}).get("total"),
+        plain_ms_cross_B1=cB["plain_ms"], bound_ms_cross_B1=cB["bound_ms"])
 
     # ---- kernel B: dual softmax, L=S=4800, C=256 -------------------------
     f0 = rng.randn(1, L, C).astype(np.float32)
@@ -895,6 +981,9 @@ def flagship_bf16(dev, log, phase=4, preset="indoor_ds",
 
     t_mp = cuda_ms(lambda: match_pair(img0, img1, matcher), iters=iters)
     model = with_config(matcher, {"dtype": "bfloat16"})
+    # the coarse stage without kernel A: the plain layer stack on cuBLAS
+    plain_coarse = with_config(matcher, {"dtype": "bfloat16",
+                                         "coarse": {"use_pallas": False}})
     timings = {"match_pair_B1_ms": t_mp}
     for B in (1, 8):
         a, b = images(3, B)
@@ -915,6 +1004,9 @@ def flagship_bf16(dev, log, phase=4, preset="indoor_ds",
             stage = {
                 "backbone_ms": cuda_ms(lambda: model.extract(inp)),
                 "coarse_ms": cuda_ms(lambda: model.coarse(f)),
+                "coarse_device_ms": (device_ms(lambda: model.coarse(f))
+                                     or {}).get("total"),
+                "coarse_plain_ms": cuda_ms(lambda: plain_coarse.coarse(f)),
                 "match_ms": cuda_ms(lambda: model.match(fc, inp)),
                 "fine_ms": cuda_ms(lambda: model.fine(fc, m, inp)),
             }
@@ -1342,12 +1434,18 @@ def main(argv=None):
         from loftr_tpu_torch.ops.kernels import _build
         t0 = time.perf_counter()
         _build.library()
+        ptxas = ptxas_summary()
         emit({"phase": 1, "nvidia_smi": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "python": sys.version.split()[0],
               "kernel_build_s": _build.build_seconds,
               "kernel_load_s": time.perf_counter() - t0,
+              "ptxas": ptxas,
               "tf32": "cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False"},
              log)
+        # kernel A's register tiles are sized to fit without spilling
+        check(ptxas is None or not any(
+            k.startswith("coarse_layer.cu:") for k in ptxas["spilling_kernels"]),
+            f"a kernel of coarse_layer.cu spills: {ptxas}")
         results = {}
         main_counts = train_counts = ot_counts = None
         with torch.no_grad():  # the inference phases carry no graph
@@ -1408,7 +1506,9 @@ def main(argv=None):
             optional = ("ms_forward", "ms_backward", "peak_mem_MiB",
                         "plain_peak_mem_MiB", "ms_prefilter",
                         "ms_1024_windows", "ms_small", "library_ms_small",
-                        "library")
+                        "library", "shape", "device_ms", "ms_cross_B1",
+                        "device_ms_cross_B1", "plain_ms_cross_B1",
+                        "bound_ms_cross_B1")
             kernels = []
             for name, r in results.items():
                 kernels.append({

@@ -79,11 +79,13 @@ def match_pair(img0, img1, matcher: LoFTR, dtype: str = "bfloat16",
     img0/img1: HxW (or HxWx1/x3) arrays, uint8 or float; H and W multiples
     of 8.  Runs on the matcher's device.  Returns dict(mkpts0 [M,2],
     mkpts1 [M,2], mconf [M]) as numpy, valid matches only, pixel (x, y).
+    ``use_pallas=False`` turns off the matcher and fine-stage kernels, as
+    ``loftr_tpu.api.match_pair`` does; the coarse layer keeps the matcher's
+    ``coarse.use_pallas``.
     """
     dev = next(matcher.parameters()).device
     model = with_config(matcher, {
         "dtype": dtype,
-        "coarse": {"use_pallas": use_pallas},
         "match_coarse": {"use_pallas": use_pallas},
         "fine": {"use_pallas": use_pallas}})
     inp = MatchInput(image0=torch.from_numpy(_to_gray_batch(img0)).to(dev),

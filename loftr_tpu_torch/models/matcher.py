@@ -98,7 +98,7 @@ class LoFTR(nn.Module):
         c, f = config.coarse, config.fine
         self.loftr_coarse = LocalFeatureTransformer(
             c.d_model, c.nhead, c.layer_names, c.attention,
-            fused_heads=c.fused_heads)
+            fused_heads=c.fused_heads, fused_heads_eval=True)
         mc = config.match_coarse
         if mc.match_type == "sinkhorn":
             self.coarse_matching = CoarseMatching(mc.skh_init_bin_score)

@@ -10,8 +10,10 @@ Parameters stay float32 and are cast to the activation dtype at each use;
 LayerNorm runs in float32 and casts back, as in the JAX package.
 
 ``fused_heads`` selects ``linear_attention_fused_heads`` (the same values in
-wide products) while the module is in ``train()`` mode; ``eval()`` keeps the
-per-head form.  ``fused_window_attn`` (default off, inference) sends the
+wide products) while the module is in ``train()`` mode, and in ``eval()``
+too with ``fused_heads_eval``: the JAX matcher applies ``coarse.fused_heads``
+to the plain coarse stack in both modes and ``fine.fused_heads`` in training
+only.  ``fused_window_attn`` (default off, inference) sends the
 attention of a layer called without masks on equal-shape ``x`` and
 ``source`` (the fine stage's windows) through the window-attention kernel
 module.
@@ -45,11 +47,13 @@ def layer_norm_f32(m: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 class LoFTREncoderLayer(nn.Module):
     def __init__(self, d_model: int, nhead: int, fused_heads: bool = False,
-                 fused_window_attn: bool = False):
+                 fused_window_attn: bool = False,
+                 fused_heads_eval: bool = False):
         super().__init__()
         self.nhead = nhead
         self.d_model = d_model
         self.fused_heads = fused_heads
+        self.fused_heads_eval = fused_heads_eval
         self.fused_window_attn = fused_window_attn
         self.q_proj = nn.Linear(d_model, d_model, bias=False)
         self.k_proj = nn.Linear(d_model, d_model, bias=False)
@@ -77,7 +81,8 @@ class LoFTREncoderLayer(nn.Module):
             message = window_linear_attention(q, k, v, nheads=h)
         else:
             attn = (linear_attention_fused_heads
-                    if self.fused_heads and self.training
+                    if self.fused_heads
+                    and (self.training or self.fused_heads_eval)
                     else linear_attention)
             message = attn(q.reshape(b, l, h, d), k.reshape(b, -1, h, d),
                            v.reshape(b, -1, h, d), q_mask=x_mask,
@@ -124,7 +129,8 @@ class LocalFeatureTransformer(nn.Module):
 
     def __init__(self, d_model: int, nhead: int, layer_names: Sequence[str],
                  attention: str = "linear", fused_heads: bool = False,
-                 fused_window_attn: bool = False):
+                 fused_window_attn: bool = False,
+                 fused_heads_eval: bool = False):
         super().__init__()
         if attention != "linear":
             raise NotImplementedError(
@@ -133,7 +139,8 @@ class LocalFeatureTransformer(nn.Module):
         self.nhead = nhead
         self.layer_names = tuple(layer_names)
         self.layers = nn.ModuleList(
-            [LoFTREncoderLayer(d_model, nhead, fused_heads, fused_window_attn)
+            [LoFTREncoderLayer(d_model, nhead, fused_heads, fused_window_attn,
+                               fused_heads_eval)
              for _ in self.layer_names])
 
     def forward(self, feat0, feat1, mask0=None, mask1=None,

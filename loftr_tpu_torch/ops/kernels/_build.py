@@ -47,6 +47,7 @@ SIGNATURES = {
 _lock = threading.Lock()
 _lib = None
 build_seconds = None  # wall time of the build in this process, if it built
+build_dir = None      # directory of the loaded library and its build.log
 
 
 def _nvcc() -> str:
@@ -106,7 +107,7 @@ def _build(out_dir: str, cu_files) -> str:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built from the sources at first use."""
-    global _lib, build_seconds
+    global _lib, build_seconds, build_dir
     with _lock:
         if _lib is not None:
             return _lib
@@ -127,7 +128,7 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _lib = lib
+        _lib, build_dir = lib, out_dir
         return lib
 
 

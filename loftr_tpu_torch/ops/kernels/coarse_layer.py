@@ -2,18 +2,27 @@
 
 Replaces ``loftr_tpu/ops/pallas/coarse_layer.py::fused_coarse_layer``
 (``_kv_kernel`` and ``_apply_kernel``).  CUDA source:
-``csrc/coarse_layer.cu``.
+``csrc/coarse_layer.cu`` (bfloat16 products: ``csrc/mma_tile.cuh``).
 
-What bounds it on the H100: operations, about 20*C^2 flop per row for the
-projections and FFN against 2*C bytes of activations in and out.  In bf16
-those products run on the tensor cores (WMMA, float accumulation); the
-float path, used for the exactness check, runs them on the CUDA cores.  Pass 1
-forms per-tile partials of KV = phi(K)^T (V/S) (per-head diagonal blocks
-only: the only blocks the layer uses) and ksum; a second kernel sums them in
-a fixed order, because CUDA blocks cannot carry a sum across a grid the way
-the TPU's sequential grid does; pass 3 applies q-projection, attention,
-merge + LN1, concat-FFN, LN2 and the residual to row tiles held in shared
-memory, so the [B, L, C] activations cross device memory once each way.
+What bounds it on the H100: operations, 20*C^2 flop per row for the
+projections and FFN against 2*C bytes of activations in and out, so the
+bound is the bf16 tensor-core rate.  The first version reached 2.6% of it:
+its WMMA products waited on L2 for the weights at every k-step and staged
+every GEMM output through float shared memory.  The bfloat16 passes now run
+on ``mma.sync``: the weights stream through a ring of 16 KB k-slabs in
+shared memory (``cp.async``, issued ahead of the products, read from L2
+once a block), each warp owns one head's 32 columns of every row, and every
+epilogue (phi and the normaliser, the attention product itself, ReLU, both
+LayerNorms, the residual) runs on the accumulators in registers.  Pass 1
+forms per-64-row-tile partials of KV = phi(K)^T (V/S) (per-head diagonal
+blocks only: the only blocks the layer uses) and ksum; a second kernel sums
+them in a fixed order, because CUDA blocks cannot carry a sum across a grid
+the way the TPU's sequential grid does; pass 3 applies the layer to tiles
+of 48 rows (when that grid fits one wave of the card's SMs) or 80 rows held
+in shared memory, so the [B, L, C] activations cross device memory once
+each way.  The float path, used for the exactness
+check, runs the same passes on the CUDA cores.  bfloat16 takes C = 256
+with 8 heads (the coarse width of every preset).
 
 ``fused_coarse_layer`` launches the kernel for CUDA tensors and runs
 :func:`coarse_layer_plain` (the same function in PyTorch, rounding where
@@ -31,7 +40,7 @@ from loftr_tpu_torch.ops.kernels.fine_stage import (EncoderWeights, dot,
                                                     layer_norm, pack_weights,
                                                     phi, rnd)
 
-TILE_S = 32  # source rows per KV-partial block (csrc/coarse_layer.cu)
+TILE_S = 64  # source rows per KV-partial block (csrc/coarse_layer.cu)
 
 
 def _mask_f32(mask, b, n, like):
@@ -82,9 +91,10 @@ def fused_coarse_layer(x: torch.Tensor, src: torch.Tensor, w: EncoderWeights,
     S = src.shape[1]
     if src.shape[0] != B or src.shape[2] != C or src.dtype != x.dtype:
         raise ValueError("x and src must share batch, width and dtype")
-    if C % 64 or C % nheads or C > 256:
+    if (C % 64 or C % nheads or C > 256
+            or (x.dtype == torch.bfloat16 and (C, nheads) != (256, 8))):
         raise ValueError(f"coarse-layer kernel: unsupported C={C}, "
-                         f"nheads={nheads}")
+                         f"nheads={nheads} in {x.dtype}")
     if not (x.is_contiguous() and src.is_contiguous()):
         raise ValueError("coarse-layer kernel takes contiguous inputs")
     code = _build.dtype_code(x)
@@ -96,11 +106,11 @@ def fused_coarse_layer(x: torch.Tensor, src: torch.Tensor, w: EncoderWeights,
     sm = _mask_f32(src_mask, B, S, x)
     d = C // nheads
     ntiles = (S + TILE_S - 1) // TILE_S
-    f32 = dict(dtype=torch.float32, device=x.device)
-    kv_part = torch.empty((B, ntiles, C, d), **f32)
-    ks_part = torch.empty((B, ntiles, C), **f32)
-    kv = torch.empty((B, C, d), **f32)
-    ksum = torch.empty((B, C), **f32)
+    # one float scratch buffer: kv_part [B, ntiles, C, d], ks_part
+    # [B, ntiles, C], kv [B, C, d], ksum [B, C]
+    sizes = (B * ntiles * C * d, B * ntiles * C, B * C * d, B * C)
+    kv_part, ks_part, kv, ksum = torch.empty(
+        sum(sizes), dtype=torch.float32, device=x.device).split(sizes)
     out = torch.empty_like(x)
     p = ctypes.c_void_p
     err = lib.loftr_coarse_layer(

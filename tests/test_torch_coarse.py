@@ -16,12 +16,14 @@ from loftr_tpu.ops.pallas.fine_stage import EncoderWeights as JaxW
 from loftr_tpu_torch.models.fused_coarse import fused_coarse_forward
 from loftr_tpu_torch.models.transformer import LocalFeatureTransformer
 from loftr_tpu_torch.ops.attention import linear_attention
-from loftr_tpu_torch.ops.kernels.coarse_layer import (coarse_layer_plain,
+from loftr_tpu_torch.ops.kernels.coarse_layer import (TILE_S,
+                                                      coarse_layer_plain,
                                                       fused_coarse_layer)
 from loftr_tpu_torch.ops.kernels.fine_stage import EncoderWeights
 from loftr_tpu_torch.utils.weights import state_dict_from_jax
 
 B, L, S, C, H = 2, 96, 80, 256, 8   # full coarse width, short sequences
+S_RAGGED = 100                      # no multiple of the source tile
 
 
 def _rand(seed, shape):
@@ -102,7 +104,8 @@ def test_kernel_plain_matches_jax_kernel(masked):
     xm, sm = _masks(10) if masked else (None, None)
     want = jax_fcl(jnp.asarray(x), jnp.asarray(src), jw,
                    None if xm is None else jnp.asarray(xm),
-                   None if sm is None else jnp.asarray(sm), nheads=H, tile=32)
+                   None if sm is None else jnp.asarray(sm), nheads=H,
+                   tile=TILE_S)
     got = fused_coarse_layer(torch.from_numpy(x), torch.from_numpy(src), tw,
                              None if xm is None else torch.from_numpy(xm),
                              None if sm is None else torch.from_numpy(sm),
@@ -119,12 +122,43 @@ def test_kernel_plain_bf16_rounds_like_jax_kernel():
     jw, tw = _weights(v["params"])
     want = np.asarray(jax_fcl(jnp.asarray(x, jnp.bfloat16),
                               jnp.asarray(src, jnp.bfloat16), jw, nheads=H,
-                              tile=32), np.float32)
+                              tile=TILE_S), np.float32)
     got = coarse_layer_plain(torch.from_numpy(x).bfloat16(),
                              torch.from_numpy(src).bfloat16(), tw,
                              nheads=H).float().numpy()
     d = np.abs(got - want)
     assert d.mean() < 1e-3 and d.max() <= 0.125
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_plain_matches_jax_kernel_ragged_source(dtype):
+    """A source length that is no multiple of the kernel's source tile
+    (S = 100 against TILE_S), masked, at C = 64: the plain version against
+    the Pallas kernel run at that tile.  float32 at the bar of
+    test_coarse_layer_fused.py:42; bfloat16 as the test above."""
+    assert S_RAGGED % TILE_S
+    c, h, b, lx = 64, 8, 2, 40
+    r = np.random.RandomState(16)
+    x = (r.randn(b, lx, c) * 0.5).astype(np.float32)
+    src = (r.randn(b, S_RAGGED, c) * 0.5).astype(np.float32)
+    xm, sm = r.rand(b, lx) > 0.2, r.rand(b, S_RAGGED) > 0.2
+    layer = JaxLayer(c, h, "linear")
+    v = jax.tree.map(np.asarray, dict(layer.init(
+        jax.random.PRNGKey(4), jnp.asarray(x), jnp.asarray(src))))
+    jw, tw = _weights(v["params"])
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    want = np.asarray(jax_fcl(jnp.asarray(x, jdt), jnp.asarray(src, jdt), jw,
+                              jnp.asarray(xm), jnp.asarray(sm), nheads=h,
+                              tile=TILE_S), np.float32)
+    got = fused_coarse_layer(torch.from_numpy(x).to(tdt),
+                             torch.from_numpy(src).to(tdt), tw,
+                             torch.from_numpy(xm), torch.from_numpy(sm),
+                             nheads=h).float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, atol=2e-4, rtol=2e-4)
+    else:
+        d = np.abs(got - want)
+        assert d.mean() < 1e-3 and d.max() <= 0.125
 
 
 def test_stack_matches_jax_fused_and_plain():
