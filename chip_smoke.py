@@ -5,21 +5,25 @@
 
 Phases, each of which must pass (any failure exits non-zero):
   1. environment: card name and power limit, versions, kernel build time
-     (the kernels build from ``loftr_tpu_torch/csrc`` at first use);
+     (the kernels build from ``loftr_tpu_torch/csrc`` at first use), and
+     ``ptxas`` registers; fails if a kernel of ``coarse_layer.cu`` or
+     ``fine_stage.cu`` spills;
   2. each CUDA kernel against its plain PyTorch version on the card, at the
      shapes of the indoor_ds 640x480 main paths, in float32 and bfloat16
      (the coarse layer also at ragged masked lengths, and timed at both of
      its launch shapes, self [2,4800,256] and cross [1,4800,256]; the
-     focal-loss kernels: sums and both gradients at B=2, the training
-     batch; the hybrid fine stage: its gradients against autograd of the
-     plain fine stage; the Sinkhorn kernel at B=2 and B=1, masked and
-     unmasked, ``prefilter`` off and on; the window-attention and upsample
-     kernels);
+     fine stage at 1024, 8192, 1920, 1021, 7 and 1 window pairs, timed at
+     the first two with its pairs a block; the focal-loss kernels: sums
+     and both gradients at B=2, the training batch; the hybrid fine stage:
+     its gradients against autograd of the plain fine stage; the Sinkhorn
+     kernel at B=2 and B=1, masked and unmasked, ``prefilter`` off and on;
+     the window-attention and upsample kernels);
   3. the inference slice in float32, card (kernels) against CPU (plain);
   4. the flagship indoor_ds preset in bfloat16 at 640x480: ``match_pair``
      at B=1 and the batched model call at B=8, timed with CUDA events, with
      the per-stage split (the coarse stage also with ``coarse.use_pallas``
-     off, the plain layer stack) and peak memory;
+     off, the plain layer stack; the fine stage also as profiled device
+     time, kernel C against the whole stage) and peak memory;
   5. one float32 ``Trainer.train_step`` at indoor_ds width, 640x480, B=2:
      card (kernels) against CPU (plain versions), same weights, batch and
      selection noise;
@@ -117,14 +121,14 @@ def device_ms(fn, iters=10):
 
 def ptxas_summary():
     """From the loaded kernel library's ``ptxas -v`` build log: registers of
-    each kernel of coarse_layer.cu, and every kernel of any source that
-    spills."""
+    each kernel of coarse_layer.cu and fine_stage.cu, and every kernel of
+    any source that spills."""
     import re
     from loftr_tpu_torch.ops.kernels import _build
     path = os.path.join(_build.build_dir, "build.log")
     if not os.path.exists(path):
         return None
-    regs, spills, src, name = {}, [], None, None
+    regs, fregs, spills, src, name = {}, {}, [], None, None
     for line in open(path):
         if line.startswith("== "):
             src = line[3:].strip()
@@ -143,7 +147,14 @@ def ptxas_summary():
             short = (name if k is None else k.group(1) + (
                 f"<{k.group(2)}>" if k.group(2) else ""))
             regs[short] = int(m.group(1))
-    return {"coarse_layer_registers": regs, "spilling_kernels": spills}
+        if m and name and src == "fine_stage.cu":
+            k = re.search(
+                r"(fine_stage_bf16|fine_stage_kernel)(?:ILi(\d+)E)?", name)
+            short = (name if k is None else k.group(1) + (
+                f"<{k.group(2)}>" if k.group(2) else ""))
+            fregs[short] = int(m.group(1))
+    return {"coarse_layer_registers": regs, "fine_stage_registers": fregs,
+            "spilling_kernels": spills}
 
 
 def bound_ms(flops, nbytes, peak_flops):
@@ -337,43 +348,79 @@ def kernel_checks(dev, log, results):
         bound_by=by, library_ms=None, bound_unit="bf16 tensor cores",
         shape="f0=f1 [1,4800,256] bf16")
 
-    # ---- kernel C: fine stage, NB=1024, 25, C=128 ------------------------
-    Cf, NB = 128, 1024
+    # ---- kernel C: fine stage, 25 x C=128 windows -----------------------
+    # NB: the B=1 and B=8 forwards (1024, 8192 windows), the B=2 hybrid
+    # training shape (1920), two counts that no pairs-per-block count (1-3)
+    # divides (1021, 7), and one pair.  Every window is its own random
+    # draw, so a leak across the boundary of two pairs packed in one block
+    # shows.  Their own generator keeps the other kernels' inputs as they
+    # were.
+    Cf = 128
     l0, l1 = enc(Cf, 2), enc(Cf, 3)
-    w0 = rng.randn(NB, 25, Cf) * 0.5
-    w1 = rng.randn(NB, 25, Cf) * 0.5
+    rc = np.random.RandomState(2)
+    wins = {nb: (rc.randn(nb, 25, Cf) * 0.5, rc.randn(nb, 25, Cf) * 0.5)
+            for nb in (1024, 8192, 1920, 1021, 7, 1)}
     # float32: the JAX kernel test's bar (2e-4, test_fine_stage_fused.py);
     # bfloat16: the soft-argmax of features that may differ by one bf16
     # rounding flip, in window coordinates [-1, 1]
     tolC = {f32: 2e-4, bf16: 5e-2}
     errC = {}
-    for dt in (f32, bf16):
-        a = torch.from_numpy(w0).to(dev, dt)
-        bb = torch.from_numpy(w1).to(dev, dt)
-        got = KC.fused_fine_stage(a, bb, l0, l1, 8)
-        want = KC.fine_stage_plain(a, bb, l0, l1, 8)
-        torch.cuda.synchronize()
-        d = (got - want).abs()
-        ok = bool((d <= tolC[dt] + tolC[dt] * want.abs()).all())
-        rec = {"phase": 2, "kernel": "fine_stage", "dtype": str(dt)[6:],
-               "max_abs_err": float(d.max()), "mean_abs_err": float(d.mean()),
-               "atol": tolC[dt], "rtol": tolC[dt], "ok": ok}
-        emit(rec, log)
-        check(ok, f"fine_stage disagrees: {rec}")
-        errC[dt] = float(d.max())
-    a = torch.from_numpy(w0).to(dev, bf16)
-    bb = torch.from_numpy(w1).to(dev, bf16)
-    ms = cuda_ms(lambda: KC.fused_fine_stage(a, bb, l0, l1, 8))
-    plain = cuda_ms(lambda: KC.fine_stage_plain(a, bb, l0, l1, 8), iters=5)
-    # 4 encoder applications x 25 rows of 10 C^2 MACs, plus score-form
-    # attention (25 scores and 25 taps per row), per window pair
-    flops = NB * (2 * 100 * 10 * Cf * Cf + 2 * 2 * 100 * 25 * Cf)
-    nbytes = 2 * NB * 25 * Cf * 2 + NB * 3 * 4 + 2 * 10 * Cf * Cf * 2
-    b, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+    for nb, (w0, w1) in wins.items():
+        for dt in (f32, bf16):
+            a = torch.from_numpy(w0).to(dev, dt)
+            bb = torch.from_numpy(w1).to(dev, dt)
+            got = KC.fused_fine_stage(a, bb, l0, l1, 8)
+            want = KC.fine_stage_plain(a, bb, l0, l1, 8)
+            torch.cuda.synchronize()
+            d = (got - want).abs()
+            ok = bool((d <= tolC[dt] + tolC[dt] * want.abs()).all())
+            rec = {"phase": 2, "kernel": "fine_stage", "NB": nb,
+                   "dtype": str(dt)[6:], "max_abs_err": float(d.max()),
+                   "mean_abs_err": float(d.mean()), "atol": tolC[dt],
+                   "rtol": tolC[dt], "ok": ok}
+            emit(rec, log)
+            check(ok, f"fine_stage disagrees: {rec}")
+            errC[(nb, dt)] = float(d.max())
+    # timing in bf16 at the two forward shapes, with the weights packed
+    # once as the model passes them (models/fused_fine.py); ms: CUDA events
+    # around back-to-back wrapper calls (host included), device_ms: the
+    # profiler's kernel time, variant: the launcher's instantiation
+    # fine_stage_bf16<G> (G window pairs a block), read from the profiled
+    # kernel's name
+    packedC = (KC.pack_weights(l0, bf16), KC.pack_weights(l1, bf16))
+    tC = {}
+    for nb in (1024, 8192):
+        a = torch.from_numpy(wins[nb][0]).to(dev, bf16)
+        bb = torch.from_numpy(wins[nb][1]).to(dev, bf16)
+
+        def run():
+            return KC.fused_fine_stage(a, bb, l0, l1, 8, packed=packedC)
+        # 4 encoder applications x 25 rows of 10 C^2 MACs, plus score-form
+        # attention (25 scores and 25 taps per row), per window pair
+        flops = nb * (2 * 100 * 10 * Cf * Cf + 2 * 2 * 100 * 25 * Cf)
+        nbytes = 2 * nb * 25 * Cf * 2 + nb * 3 * 4 + 2 * 10 * Cf * Cf * 2
+        b, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+        dms = device_ms(run) or {}
+        kern = [k for k in dms if k.startswith("fine_stage_bf16<")]
+        rec = {"NB": nb, "ms": cuda_ms(run, iters=20),
+               "device_ms": dms.get("total"),
+               "variant": kern[0] if len(kern) == 1 else None,
+               "plain_ms": cuda_ms(lambda: KC.fine_stage_plain(
+                   a, bb, l0, l1, 8), iters=3),
+               "bound_ms": b, "bound_by": by}
+        emit({"phase": 2, "kernel": "fine_stage", "timing": f"NB{nb}", **rec},
+             log)
+        check(rec["variant"] is not None,
+              f"fine_stage: no single bf16 kernel in the profile: {dms}")
+        tC[nb] = rec
+    t1, t8 = tC[1024], tC[8192]
     results["fine_stage"] = dict(
-        max_abs_err=errC[bf16], ms=ms, plain_ms=plain, bound_ms=b,
-        bound_by=by, library_ms=None, bound_unit="bf16 tensor cores",
-        shape="win0=win1 [1024,25,128] bf16")
+        max_abs_err=errC[(1024, bf16)], ms=t1["ms"], plain_ms=t1["plain_ms"],
+        bound_ms=t1["bound_ms"], bound_by=t1["bound_by"], library_ms=None,
+        bound_unit="bf16 tensor cores", shape="win0=win1 [1024,25,128] bf16",
+        device_ms=t1["device_ms"], variant=t1["variant"], ms_8192=t8["ms"],
+        device_ms_8192=t8["device_ms"], plain_ms_8192=t8["plain_ms"],
+        bound_ms_8192=t8["bound_ms"], variant_8192=t8["variant"])
     for k, v in results.items():
         emit({"phase": 2, "kernel": k, "timing": v}, log)
 
@@ -1010,6 +1057,12 @@ def flagship_bf16(dev, log, phase=4, preset="indoor_ds",
                 "match_ms": cuda_ms(lambda: model.match(fc, inp)),
                 "fine_ms": cuda_ms(lambda: model.fine(fc, m, inp)),
             }
+            # the profiler's split of the fine stage: kernel C against the
+            # whole stage (gather, merge and the rest)
+            fd = device_ms(lambda: model.fine(fc, m, inp)) or {}
+            stage["fine_device_ms"] = sum(
+                v for k, v in fd.items() if k.startswith("fine_stage_bf16<"))
+            stage["fine_device_total_ms"] = fd.get("total")
         rec = {"phase": phase, "preset": preset, "batch": B,
                "ms_per_batch": ms,
                "ms_per_pair": ms / B, "pairs_per_s": 1000.0 * B / ms,
@@ -1442,10 +1495,13 @@ def main(argv=None):
               "ptxas": ptxas,
               "tf32": "cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False"},
              log)
-        # kernel A's register tiles are sized to fit without spilling
-        check(ptxas is None or not any(
-            k.startswith("coarse_layer.cu:") for k in ptxas["spilling_kernels"]),
-            f"a kernel of coarse_layer.cu spills: {ptxas}")
+        # kernels A's and C's register tiles are sized to fit without
+        # spilling
+        for src_name in ("coarse_layer.cu", "fine_stage.cu"):
+            check(ptxas is None or not any(
+                k.startswith(src_name + ":")
+                for k in ptxas["spilling_kernels"]),
+                f"a kernel of {src_name} spills: {ptxas}")
         results = {}
         main_counts = train_counts = ot_counts = None
         with torch.no_grad():  # the inference phases carry no graph
@@ -1508,7 +1564,9 @@ def main(argv=None):
                         "ms_1024_windows", "ms_small", "library_ms_small",
                         "library", "shape", "device_ms", "ms_cross_B1",
                         "device_ms_cross_B1", "plain_ms_cross_B1",
-                        "bound_ms_cross_B1")
+                        "bound_ms_cross_B1", "variant", "ms_8192",
+                        "device_ms_8192", "plain_ms_8192", "bound_ms_8192",
+                        "variant_8192")
             kernels = []
             for name, r in results.items():
                 kernels.append({

@@ -212,6 +212,8 @@ __global__ void __launch_bounds__(kThreads)
 // Fixed width: C = 256 (8 warps x 32 columns), 8 heads of d = 32, so warp w
 // owns head w's columns in every product.
 using mma::bf16;
+using mma::layer_norm_acc;
+using mma::st_pair;
 constexpr int kC = 256, kD = 32, kNH = kC / kD;
 constexpr int kLdS = kC + 8;       // padded [rows, C] bf16 row (elements)
 constexpr int kLdX = 2 * kC + 8;   // padded [rows, 2C] bf16 row (elements)
@@ -231,72 +233,6 @@ __device__ __forceinline__ void load_rows(bf16* dst, int ld,
     else
       *reinterpret_cast<uint4*>(dst + r * ld + c) = make_uint4(0, 0, 0, 0);
   }
-}
-
-// LayerNorm (two-pass variance, eps 1e-5) of the block's TM x 256 GEMM
-// output held in the warps' accumulators; op(r, c, y_c, y_c+1) receives
-// each thread's column pairs.  red: [2][8 warps][TM] floats.
-template <int MT, typename Op>
-__device__ __forceinline__ void layer_norm_acc(const float (&acc)[MT][4][4],
-                                               const float* __restrict__ scale,
-                                               const float* __restrict__ bias,
-                                               float* red, Op op) {
-  constexpr int TM = 16 * MT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, q = lane & 3;
-  float mean[MT][2], rstd[MT][2];
-#pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {
-    float* rp = red + pass * 8 * TM;
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float s = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const float v = acc[mt][j][2 * h + i];
-            s += pass == 0 ? v : (v - mean[mt][h]) * (v - mean[mt][h]);
-          }
-        s += __shfl_xor_sync(0xffffffffu, s, 1);
-        s += __shfl_xor_sync(0xffffffffu, s, 2);
-        if (q == 0) rp[warp * TM + mt * 16 + g + 8 * h] = s;
-      }
-    __syncthreads();
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = mt * 16 + g + 8 * h;
-        float t = 0.f;
-#pragma unroll
-        for (int w = 0; w < 8; ++w) t += rp[w * TM + r];
-        if (pass == 0)
-          mean[mt][h] = t / kC;
-        else
-          rstd[mt][h] = rsqrtf(t / kC + 1e-5f);
-      }
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = warp * 32 + j * 8 + 2 * q;
-    const float s0 = scale[c], s1 = scale[c + 1];
-    const float b0 = bias[c], b1 = bias[c + 1];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float m = mean[mt][h], rs = rstd[mt][h];
-        op(mt * 16 + g + 8 * h, c, (acc[mt][j][2 * h] - m) * rs * s0 + b0,
-           (acc[mt][j][2 * h + 1] - m) * rs * s1 + b1);
-      }
-  }
-}
-
-__device__ __forceinline__ void st_pair(bf16* p, float lo, float hi) {
-  *reinterpret_cast<uint32_t*>(p) = mma::pack_bf16(lo, hi);
 }
 
 // Pass 1, bf16: K and V projections of a 64-row source tile, masked phi(K)

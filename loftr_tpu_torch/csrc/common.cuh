@@ -58,7 +58,8 @@ __device__ __forceinline__ float warp_max(float v) {
 // A: rows in shared memory.  W: [K, ldw] row-major in global memory (read
 // through L1/L2; every block reads the same weights).
 //
-// float (the exactness path): CUDA-core FMAs.  Warp w owns rows w, w+8,
+// The float paths' GEMM (the exactness check): CUDA-core FMAs; the
+// bfloat16 paths use mma_tile.cuh or sim_tile.cuh.  Warp w owns rows w, w+8,
 // ..., lane l owns columns l, l+32, ... of each 32*NJ-wide pass, so A reads
 // broadcast within a warp and W reads coalesce.
 template <int RPT, int NJ, typename TA, typename TW>
@@ -101,80 +102,15 @@ __device__ void gemm_simt_nj(const TA* A, int lda, int R, int K,
   }
 }
 
-// bfloat16 (the main path): tensor cores through WMMA (mma.sync, 16x16x16
-// tiles, float accumulation).  Each warp owns a strip of NB 16-column tiles
-// across all (up to kMaxRowTiles) 16-row tiles, so each weight fragment is
-// loaded from L2 once per block and feeds every row tile.  Rows are
-// processed in whole 16-row tiles: A and out must hold ceil(R/16)*16 rows
-// (the extra rows compute values nobody reads).  Needs R <= 64,
-// K % 16 == 0, N % 32 == 0, 32-byte aligned tiles (lda, ldw multiples of
-// 16 elements, ldo of 8).
-constexpr int kMaxRowTiles = 4;
-
-template <int NB>
-__device__ void gemm_tc_nb(const __nv_bfloat16* A, int lda, int R, int K,
-                           const __nv_bfloat16* __restrict__ W, int ldw,
-                           int N, float* out, int ldo) {
-  using namespace nvcuda;
-  const int warp = threadIdx.x >> 5;
-  const int mt = (R + 15) / 16;
-  for (int n0 = warp * 16 * NB; n0 < N; n0 += (kThreads / 32) * 16 * NB) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kMaxRowTiles][NB];
-#pragma unroll
-    for (int i = 0; i < kMaxRowTiles; ++i)
-#pragma unroll
-      for (int j = 0; j < NB; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-#pragma unroll 2
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> b[NB];
-#pragma unroll
-      for (int j = 0; j < NB; ++j)
-        wmma::load_matrix_sync(b[j], W + (size_t)k * ldw + n0 + 16 * j, ldw);
-#pragma unroll
-      for (int i = 0; i < kMaxRowTiles; ++i) {
-        if (i >= mt) break;
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> a;
-        wmma::load_matrix_sync(a, A + i * 16 * lda + k, lda);
-#pragma unroll
-        for (int j = 0; j < NB; ++j) wmma::mma_sync(acc[i][j], a, b[j], acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kMaxRowTiles; ++i) {
-      if (i >= mt) break;
-#pragma unroll
-      for (int j = 0; j < NB; ++j)
-        wmma::store_matrix_sync(out + i * 16 * ldo + n0 + 16 * j, acc[i][j],
-                                ldo, wmma::mem_row_major);
-    }
-  }
-}
-
-__device__ inline void gemm_tc(const __nv_bfloat16* A, int lda, int R, int K,
-                               const __nv_bfloat16* __restrict__ W, int ldw,
-                               int N, float* out, int ldo) {
-  // strips of 2 column tiles while that still gives every warp a strip
-  if (N >= 2 * 16 * (kThreads / 32))
-    gemm_tc_nb<2>(A, lda, R, K, W, ldw, N, out, ldo);
-  else
-    gemm_tc_nb<1>(A, lda, R, K, W, ldw, N, out, ldo);
-}
-
-// Dispatch on the element type: bf16 -> tensor cores, float -> CUDA cores.
+// Dispatch on the width: 8 columns a lane where N is a multiple of 256.
 template <int RPT, typename TA, typename TW>
 __device__ void gemm(const TA* A, int lda, int R, int K,
                      const TW* __restrict__ W, int ldw, int N, float* out,
                      int ldo) {
-  if constexpr (std::is_same<TW, __nv_bfloat16>::value) {
-    static_assert(std::is_same<TA, __nv_bfloat16>::value, "A must be bf16");
-    gemm_tc(A, lda, R, K, W, ldw, N, out, ldo);
-  } else if (N % 256 == 0) {
+  if (N % 256 == 0)
     gemm_simt_nj<RPT, 8>(A, lda, R, K, W, ldw, N, out, ldo);
-  } else {
+  else
     gemm_simt_nj<RPT, 4>(A, lda, R, K, W, ldw, N, out, ldo);
-  }
 }
 
 // In-place float32 LayerNorm over C columns of R rows (two-pass variance,

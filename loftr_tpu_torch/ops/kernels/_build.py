@@ -132,6 +132,37 @@ def library() -> ctypes.CDLL:
         return lib
 
 
+def build_variant(name: str, source: str):
+    """Compile ``source`` (C++ that may ``#include`` the sources of
+    ``csrc/``) into a library of its own under ``build/<name>/<hash>/``,
+    with ``ptxas -v``; the measurement tools use it to add entry points
+    without touching the production library.  Returns (library path, build
+    log)."""
+    h = hashlib.sha256(source.encode())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    for path in _sources()[1]:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + f.read())
+    out_dir = os.path.join(os.path.dirname(BUILD_ROOT), name,
+                           h.hexdigest()[:16])
+    lib_path = os.path.join(out_dir, f"lib{name}.so")
+    log_path = os.path.join(out_dir, "build.log")
+    if not os.path.exists(lib_path):
+        os.makedirs(out_dir, exist_ok=True)
+        src = os.path.join(out_dir, name + ".cu")
+        with open(src, "w") as f:
+            f.write(source)
+        r = subprocess.run(
+            [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-Xptxas", "-v", "-shared",
+             "-I", CSRC, src, "-o", lib_path], capture_output=True, text=True)
+        with open(log_path, "w") as f:
+            f.write(r.stdout + r.stderr)
+        if r.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + r.stdout + r.stderr)
+    with open(log_path) as f:
+        return lib_path, f.read()
+
+
 def check(err: int, name: str):
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:

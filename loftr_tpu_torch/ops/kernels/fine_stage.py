@@ -1,15 +1,21 @@
 """Kernel C: the fused fine stage (fine transformer + soft-argmax).
 
 Replaces ``loftr_tpu/ops/pallas/fine_stage.py::fused_fine_stage``
-(``_fine_stage_kernel``).  CUDA source: ``csrc/fine_stage.cu``.
+(``_fine_stage_kernel``).  CUDA source: ``csrc/fine_stage.cu`` (bfloat16
+products: ``csrc/mma_tile.cuh``).
 
 What bounds it on the H100: operations.  A window pair costs about 4
 encoder applications x 25 rows x 20*C^2 flop (33 MFLOP at C=128) against
-2 x 25 x C input values and 3 output floats.  The kernel keeps one window
-pair in shared memory from load to result, so device memory sees one read
-of the windows and one [NB, 3] write.  In bf16 the projections and FFN run
-on the tensor cores (WMMA, float accumulation); the float path, used for
-the exactness check, runs them on the CUDA cores.
+2 x 25 x C input values and 3 output floats.  The windows stay in shared
+memory from load to result, so device memory sees one read of the windows
+and one [NB, 3] write.  In bfloat16 the products run on ``mma.sync`` with
+the weights staged through a ``cp.async`` ring, every epilogue on the
+accumulators, and the per-window attention on the tensor cores too; the
+kernel can pack up to 3 window pairs a block, and runs one pair a block,
+two blocks an SM, the fastest at every window count measured.  It
+takes C = 128 with 8 heads (the fine width of every preset).  The float
+path, used for the exactness check, keeps one pair a block on the CUDA
+cores and takes other widths.
 
 ``fused_fine_stage`` launches the kernel for CUDA tensors and runs
 :func:`fine_stage_plain` (the same function in PyTorch, rounding where the
@@ -140,9 +146,10 @@ def fused_fine_stage(win0: torch.Tensor, win1: torch.Tensor,
         raise ValueError("win0 and win1 must share shape and dtype")
     if w2 != 25:
         raise ValueError(f"fine-stage kernel takes 5x5 windows, got W2={w2}")
-    if c % 64 or c % nheads or c > 256 or c // nheads > 32:
+    if (c % 64 or c % nheads or c > 256 or c // nheads > 32
+            or (win0.dtype == torch.bfloat16 and (c, nheads) != (128, 8))):
         raise ValueError(f"fine-stage kernel: unsupported C={c}, "
-                         f"nheads={nheads}")
+                         f"nheads={nheads} in {win0.dtype}")
     if not (win0.is_contiguous() and win1.is_contiguous()):
         raise ValueError("fine-stage kernel takes contiguous windows")
     code = _build.dtype_code(win0)

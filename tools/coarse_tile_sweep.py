@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import os
 import re
 import subprocess
@@ -69,34 +68,12 @@ extern "C" int loftr_coarse_layer_rows(
 def build():
     """Compile the sweep library; returns (ctypes library, ptxas log)."""
     from loftr_tpu_torch.ops.kernels import _build
-    h = hashlib.sha256(SWEEP_CU.encode())
-    h.update(" ".join(_build.ARCH_FLAGS + _build.NVCC_FLAGS).encode())
-    for name in sorted(os.listdir(_build.CSRC)):
-        if name.endswith((".cu", ".cuh")):
-            with open(os.path.join(_build.CSRC, name), "rb") as f:
-                h.update(name.encode() + f.read())
-    out_dir = os.path.join(os.path.dirname(_build.BUILD_ROOT),
-                           "coarse_tile_sweep", h.hexdigest()[:16])
-    lib_path = os.path.join(out_dir, "libcoarse_tile_sweep.so")
-    log_path = os.path.join(out_dir, "build.log")
-    if not os.path.exists(lib_path):
-        os.makedirs(out_dir, exist_ok=True)
-        src = os.path.join(out_dir, "coarse_tile_sweep.cu")
-        with open(src, "w") as f:
-            f.write(SWEEP_CU)
-        r = subprocess.run(
-            [_build._nvcc(), *_build.ARCH_FLAGS, *_build.NVCC_FLAGS,
-             "-Xptxas", "-v", "-shared", "-I", _build.CSRC, src, "-o",
-             lib_path], capture_output=True, text=True)
-        with open(log_path, "w") as f:
-            f.write(r.stdout + r.stderr)
-        if r.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + r.stdout + r.stderr)
+    lib_path, log = _build.build_variant("coarse_tile_sweep", SWEEP_CU)
     lib = ctypes.CDLL(lib_path)
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.loftr_coarse_layer_rows.argtypes = [P] * 11 + [I] * 3 + [F, I, P]
     lib.loftr_coarse_layer_rows.restype = I
-    return lib, open(log_path).read()
+    return lib, log
 
 
 def registers(log):
