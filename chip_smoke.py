@@ -7,13 +7,16 @@ Phases, each of which must pass (any failure exits non-zero):
   1. environment: card name and power limit, versions, kernel build time
      (the kernels build from ``loftr_tpu_torch/csrc`` at first use), and
      ``ptxas`` registers; fails if a kernel of ``coarse_layer.cu`` or
-     ``fine_stage.cu`` spills;
+     ``fine_stage.cu``, or a bf16 pass of ``dual_softmax.cu``, spills;
   2. each CUDA kernel against its plain PyTorch version on the card, at the
      shapes of the indoor_ds 640x480 main paths, in float32 and bfloat16
      (the coarse layer also at ragged masked lengths, and timed at both of
      its launch shapes, self [2,4800,256] and cross [1,4800,256]; the
      fine stage at 1024, 8192, 1920, 1021, 7 and 1 window pairs, timed at
-     the first two with its pairs a block; the focal-loss kernels: sums
+     the first two with its pairs a block; the dual softmax at
+     [1,4800,256] unmasked and masked, [8,4800,256] masked, a ragged masked
+     pair L=4700 / S=4750 at B=2, L=S=7 and S=11025, timed at B=1 and B=8;
+     the focal-loss kernels: sums
      and both gradients at B=2, the training batch; the hybrid fine stage:
      its gradients against autograd of the plain fine stage; the Sinkhorn
      kernel at B=2 and B=1, masked and unmasked, ``prefilter`` off and on;
@@ -22,8 +25,9 @@ Phases, each of which must pass (any failure exits non-zero):
   4. the flagship indoor_ds preset in bfloat16 at 640x480: ``match_pair``
      at B=1 and the batched model call at B=8, timed with CUDA events, with
      the per-stage split (the coarse stage also with ``coarse.use_pallas``
-     off, the plain layer stack; the fine stage also as profiled device
-     time, kernel C against the whole stage) and peak memory;
+     off, the plain layer stack; the match and fine stages also as
+     profiled device time, kernel B's bf16 path and kernel C against the
+     whole stage) and peak memory;
   5. one float32 ``Trainer.train_step`` at indoor_ds width, 640x480, B=2:
      card (kernels) against CPU (plain versions), same weights, batch and
      selection noise;
@@ -94,41 +98,43 @@ def cuda_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=10):
+def device_ms(fn, iters=10, tries=3):
     """Device time per call of ``fn`` from the profiler, by kernel, with the
-    sum under "total"; None when the profiler sees no device time."""
+    sum under "total"; None when the profiler sees no device time in any of
+    ``tries`` windows (a window now and then records no kernel at all)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    per = {}
-    for e in prof.key_averages():
-        t = getattr(e, "device_time_total", 0) or 0
-        if t > 0:
-            base = (e.key.replace("(anonymous namespace)::", "")
-                    .split("(")[0].replace("void ", ""))
-            name = (base[len("loftr::"):] if base.startswith("loftr::")
-                    else base.split("<")[0].split("::")[-1])
-            per[name] = per.get(name, 0.0) + t / iters / 1e3
-    if not per:
-        return None
-    return {"total": sum(per.values()), **per}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        per = {}
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", 0) or 0
+            if t > 0:
+                base = (e.key.replace("(anonymous namespace)::", "")
+                        .split("(")[0].replace("void ", ""))
+                name = (base[len("loftr::"):] if base.startswith("loftr::")
+                        else base.split("<")[0].split("::")[-1])
+                per[name] = per.get(name, 0.0) + t / iters / 1e3
+        if per:
+            return {"total": sum(per.values()), **per}
+    return None
 
 
 def ptxas_summary():
     """From the loaded kernel library's ``ptxas -v`` build log: registers of
-    each kernel of coarse_layer.cu and fine_stage.cu, and every kernel of
-    any source that spills."""
+    each kernel of coarse_layer.cu and fine_stage.cu and of dual_softmax.cu's
+    bf16 passes, and every kernel of any source that spills."""
     import re
     from loftr_tpu_torch.ops.kernels import _build
     path = os.path.join(_build.build_dir, "build.log")
     if not os.path.exists(path):
         return None
-    regs, fregs, spills, src, name = {}, {}, [], None, None
+    regs, fregs, bregs, spills, src, name = {}, {}, {}, [], None, None
     for line in open(path):
         if line.startswith("== "):
             src = line[3:].strip()
@@ -147,6 +153,12 @@ def ptxas_summary():
             short = (name if k is None else k.group(1) + (
                 f"<{k.group(2)}>" if k.group(2) else ""))
             regs[short] = int(m.group(1))
+        if m and name and src == "dual_softmax.cu":
+            k = re.search(r"dual_softmax_bf16ILi(\d)ELi(\d)ELi(\d)ELi(\d)E",
+                          name)
+            if k:
+                bregs["dual_softmax_bf16<%s>" % ", ".join(k.groups())] = \
+                    int(m.group(1))
         if m and name and src == "fine_stage.cu":
             k = re.search(
                 r"(fine_stage_bf16|fine_stage_kernel)(?:ILi(\d+)E)?", name)
@@ -154,6 +166,7 @@ def ptxas_summary():
                 f"<{k.group(2)}>" if k.group(2) else ""))
             fregs[short] = int(m.group(1))
     return {"coarse_layer_registers": regs, "fine_stage_registers": fregs,
+            "dual_softmax_bf16_registers": bregs,
             "spilling_kernels": spills}
 
 
@@ -287,33 +300,58 @@ def kernel_checks(dev, log, results):
     ii, jj = rng.permutation(L)[:400], rng.permutation(L)[:400]
     f1[0, jj] = f0[0, ii] + 0.1 * rng.randn(400, C)
     masks = (rng.rand(1, L) > 0.1, rng.rand(1, L) > 0.1)
+    casesB = {"B1": (f0, f1, None, None),
+              "B1_masked": (f0, f1, masks[0], masks[1])}
+    # the B=8 forward's launch, a ragged pair (no multiple of any tile),
+    # L=S=7, and the 840x840 coarse grid's S = 105*105; their own generator,
+    # so that the other kernels' inputs stay as they were
+    rb = np.random.RandomState(3)
+
+    def pairB(B_, L_, S_, masked):
+        a_ = rb.randn(B_, L_, C).astype(np.float32)
+        b_ = rb.randn(B_, S_, C).astype(np.float32)
+        n = min(L_, S_) // 12
+        for k in range(B_):
+            ia, ja = rb.permutation(L_)[:n], rb.permutation(S_)[:n]
+            b_[k, ja] = a_[k, ia] + 0.1 * rb.randn(n, C)
+        if not masked:
+            return a_, b_, None, None
+        return a_, b_, rb.rand(B_, L_) > 0.1, rb.rand(B_, S_) > 0.1
+    casesB["B8_masked"] = pairB(8, L, L, True)
+    casesB["ragged_B2_masked"] = pairB(2, L - 100, L - 50, True)
+    casesB["L7_S7_masked"] = pairB(1, 7, 7, True)
+    casesB["long_S11025"] = pairB(1, L, 105 * 105, False)
     errB = {}
-    for masked in (False, True):
+    for name, (x0, x1, mk0, mk1) in casesB.items():
         for dt in (f32, bf16):
-            a = torch.from_numpy(f0).to(dev, dt)
-            bb = torch.from_numpy(f1).to(dev, dt)
-            m0 = torch.from_numpy(masks[0]).to(dev) if masked else None
-            m1 = torch.from_numpy(masks[1]).to(dev) if masked else None
+            a = torch.from_numpy(x0).to(dev, dt)
+            bb = torch.from_numpy(x1).to(dev, dt)
+            m0 = None if mk0 is None else torch.from_numpy(mk0).to(dev)
+            m1 = None if mk1 is None else torch.from_numpy(mk1).to(dev)
             bv, bj, cc = KB.fused_dual_softmax_match(a, bb, 0.1, m0, m1)
             pv, pj, pc = KB.dual_softmax_plain(a, bb, 0.1, m0, m1)
             # the plain conf, to explain argmax differences by near-ties
             B_, L_, C_ = a.shape
+            S_ = bb.shape[1]
             sim = torch.matmul(a.float(), bb.float().transpose(1, 2))
             sim = sim / (C_ * 0.1)
-            mm0 = torch.ones(1, L_, device=dev) if m0 is None else m0.float()
-            mm1 = torch.ones(1, L_, device=dev) if m1 is None else m1.float()
+            mm0 = torch.ones(B_, L_, device=dev) if m0 is None else m0.float()
+            mm1 = torch.ones(B_, S_, device=dev) if m1 is None else m1.float()
             sim = sim + (mm0[:, :, None] * mm1[:, None, :] - 1.0) * 1e9
             conf = torch.softmax(sim, 2) * torch.softmax(sim, 1)
-            row_gap = rel_gap_top2(conf)[0]
-            col_gap = rel_gap_top2(conf.transpose(1, 2))[0]
-            del sim, conf
+            del sim
+            row_gap = rel_gap_top2(conf) if S_ > 1 else torch.ones_like(pv)
+            col_gap = (rel_gap_top2(conf.transpose(1, 2)) if L_ > 1
+                       else torch.ones_like(pc))
+            del conf
             # valid as the epilogue forms it (thr 0.2, MNN), both versions
             vk = (bv > 0.2) & (bv >= torch.gather(cc, 1, bj.long()))
             vp = (pv > 0.2) & (pv >= torch.gather(pc, 1, pj.long()))
             torch.cuda.synchronize()
-            j_diff = (bj != pj)[0]
-            v_diff = (vk != vp)[0]
-            near = (row_gap < 1e-6) | (col_gap[pj[0].long()] < 1e-6)
+            j_diff = bj != pj
+            v_diff = vk != vp
+            near = (row_gap < 1e-6) | (torch.gather(
+                col_gap, 1, pj.long()) < 1e-6)
             unexplained = int(((j_diff | v_diff) & ~near).sum())
             dv = float((bv - pv).abs().max())
             dc = float((cc - pc).abs().max())
@@ -322,7 +360,8 @@ def kernel_checks(dev, log, results):
             # relative; 1e-6 absolute for tiny values)
             okv = bool(((bv - pv).abs() <= 1e-6 + 1e-4 * pv.abs()).all())
             okc = bool(((cc - pc).abs() <= 1e-6 + 1e-4 * pc.abs()).all())
-            rec = {"phase": 2, "kernel": "dual_softmax", "masked": masked,
+            rec = {"phase": 2, "kernel": "dual_softmax", "case": name,
+                   "shape": [B_, L_, S_, C_], "masked": mk0 is not None,
                    "dtype": str(dt)[6:], "best_val_max_abs_err": dv,
                    "colconf_max_abs_err": dc,
                    "best_j_mismatch": int(j_diff.sum()),
@@ -333,20 +372,48 @@ def kernel_checks(dev, log, results):
                    and unexplained == 0}
             emit(rec, log)
             check(rec["ok"], f"dual_softmax disagrees: {rec}")
-            errB[(masked, dt)] = max(dv, dc)
-    a = torch.from_numpy(f0).to(dev, bf16)
-    bb = torch.from_numpy(f1).to(dev, bf16)
-    ms = cuda_ms(lambda: KB.fused_dual_softmax_match(a, bb, 0.1))
-    plain = cuda_ms(lambda: KB.dual_softmax_plain(a, bb, 0.1), iters=5)
-    # both passes' sim products (exponentials not counted); features in,
-    # best value + index per row and column max out
-    flops = 2 * 2 * L * L * C
-    nbytes = 2 * L * C * 2 + L * 8 + L * 4
-    b, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+            errB[(name, dt)] = max(dv, dc)
+    # timing in bf16 at the main path's launches, B=1 (match_pair) and B=8
+    # (the batched forward); ms: CUDA events around back-to-back wrapper
+    # calls (host included), device_ms: the profiler's time per call (the
+    # two passes dual_softmax_bf16<...> and the two combines), variant: the
+    # pass kernel's name.  Bound: both passes' sim products (exponentials
+    # not counted); features in, best value + index per row and column max
+    # out.
+    tB = {}
+    for name in ("B1", "B8_masked"):
+        x0, x1 = casesB[name][:2]
+        a = torch.from_numpy(x0).to(dev, bf16)
+        bb = torch.from_numpy(x1).to(dev, bf16)
+        B_ = a.shape[0]
+
+        def run():
+            return KB.fused_dual_softmax_match(a, bb, 0.1)
+        flops = 2 * 2 * B_ * L * L * C
+        nbytes = B_ * (2 * L * C * 2 + L * 8 + L * 4)
+        b, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+        dms = device_ms(run) or {}
+        kern = sorted(k for k in dms if "dual_softmax_bf16<" in k)
+        rec = {"B": B_, "ms": cuda_ms(run, iters=20),
+               "device_ms": dms.get("total"),
+               "pass_device_ms": sum(dms[k] for k in kern),
+               "variant": " ".join(kern) if len(kern) == 2 else None,
+               "plain_ms": cuda_ms(lambda: KB.dual_softmax_plain(a, bb, 0.1),
+                                   iters=5 if B_ == 1 else 2),
+               "bound_ms": b, "bound_by": by}
+        emit({"phase": 2, "kernel": "dual_softmax", "timing": f"B{B_}", **rec},
+             log)
+        check(not dms or rec["variant"] is not None,
+              f"dual_softmax: not both bf16 passes in the profile: {dms}")
+        tB[B_] = rec
+    t1, t8 = tB[1], tB[8]
     results["dual_softmax"] = dict(
-        max_abs_err=errB[(False, bf16)], ms=ms, plain_ms=plain, bound_ms=b,
-        bound_by=by, library_ms=None, bound_unit="bf16 tensor cores",
-        shape="f0=f1 [1,4800,256] bf16")
+        max_abs_err=errB[("B1", bf16)], ms=t1["ms"], plain_ms=t1["plain_ms"],
+        bound_ms=t1["bound_ms"], bound_by=t1["bound_by"], library_ms=None,
+        bound_unit="bf16 tensor cores", shape="f0=f1 [1,4800,256] bf16",
+        device_ms=t1["device_ms"], variant=t1["variant"], ms_B8=t8["ms"],
+        device_ms_B8=t8["device_ms"], plain_ms_B8=t8["plain_ms"],
+        bound_ms_B8=t8["bound_ms"])
 
     # ---- kernel C: fine stage, 25 x C=128 windows -----------------------
     # NB: the B=1 and B=8 forwards (1024, 8192 windows), the B=2 hybrid
@@ -1057,6 +1124,16 @@ def flagship_bf16(dev, log, phase=4, preset="indoor_ds",
                 "match_ms": cuda_ms(lambda: model.match(fc, inp)),
                 "fine_ms": cuda_ms(lambda: model.fine(fc, m, inp)),
             }
+            # the profiler's split of the match stage: kernel B's bf16 path
+            # (both passes and the two combines) against the whole stage
+            md = device_ms(lambda: model.match(fc, inp)) or {}
+            stage["match_device_ms"] = sum(
+                v for k, v in md.items()
+                if "dual_softmax_bf16<" in k or k.endswith("_combine"))
+            stage["match_device_total_ms"] = md.get("total")
+            if md and matcher_kernel == "dual_softmax":
+                check(any("dual_softmax_bf16<" in k for k in md),
+                      f"the match stage ran no bf16 kernel B: {md}")
             # the profiler's split of the fine stage: kernel C against the
             # whole stage (gather, merge and the rest)
             fd = device_ms(lambda: model.fine(fc, m, inp)) or {}
@@ -1495,13 +1572,17 @@ def main(argv=None):
               "ptxas": ptxas,
               "tf32": "cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False"},
              log)
-        # kernels A's and C's register tiles are sized to fit without
-        # spilling
+        # kernels A's and C's register tiles, and those of kernel B's bf16
+        # passes, are sized to fit without spilling
         for src_name in ("coarse_layer.cu", "fine_stage.cu"):
             check(ptxas is None or not any(
                 k.startswith(src_name + ":")
                 for k in ptxas["spilling_kernels"]),
                 f"a kernel of {src_name} spills: {ptxas}")
+        check(ptxas is None or not any(
+            k.startswith("dual_softmax.cu:") and "dual_softmax_bf16" in k
+            for k in ptxas["spilling_kernels"]),
+            f"a bf16 pass of dual_softmax.cu spills: {ptxas}")
         results = {}
         main_counts = train_counts = ot_counts = None
         with torch.no_grad():  # the inference phases carry no graph
@@ -1566,7 +1647,8 @@ def main(argv=None):
                         "device_ms_cross_B1", "plain_ms_cross_B1",
                         "bound_ms_cross_B1", "variant", "ms_8192",
                         "device_ms_8192", "plain_ms_8192", "bound_ms_8192",
-                        "variant_8192")
+                        "variant_8192", "ms_B8", "device_ms_B8",
+                        "plain_ms_B8", "bound_ms_B8")
             kernels = []
             for name, r in results.items():
                 kernels.append({

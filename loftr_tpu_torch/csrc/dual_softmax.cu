@@ -10,19 +10,48 @@
 //           and lowest argmax, per-row-tile column max of conf.
 // Each pass recomputes the sim tiles; [L, S] never reaches device memory.
 //
-// What bounds it on the H100: operations (2 x 2*L*S*C flop plus about
-// 4*L*S exponentials against (L+S)*C input values), so the products and the
-// exps.  Blocks compute 64x64 sim tiles from shared-memory k-slabs: on the
-// tensor cores (WMMA, float accumulation) in bf16, on the CUDA cores in
-// float (the exactness check).
+// What bounds it on the H100: operations, 2 x 2*L*S*C flop plus 4*L*S
+// exponentials (2 an element in each pass, as the JAX kernel forms them)
+// against (L+S)*C input values.  At L = S = 4800, C = 256 each pass is 12 us
+// of bf16 tensor-core work and about as much of the SFU's exponentials.
 //
 // The TPU kernels carry column statistics across a sequential grid.  Here a
-// block owns a 64-row tile and a chunk of columns; it writes row partials
+// block owns a row tile and a chunk of columns; it writes row partials
 // per column chunk and column partials per row tile, and small combine
 // kernels reduce them in a fixed order (log-sum-exp rescale for the
 // softmax statistics, max with the lowest index on ties for the row best).
 // No float atomics, so results are deterministic.
+//
+// float features (the exactness check, and the focal-loss statistics entry
+// loftr_dual_softmax_stats in both types): 64x64 sim tiles from
+// shared-memory k-slabs (sim_tile.cuh), rebuilt at every k-step.
+//
+// bfloat16 features, C = 256 (dual_softmax_bf16 below): what held the tile
+// kernel at 3% of the bound was that every 64x64 tile reloaded both operands
+// from L2 one scalar at a time at every 32-deep k-step, sent the products
+// through a float tile in shared memory, and spread each row over 16
+// threads.  The bf16 path instead
+//   - stages the block's R rows of f0 into shared memory once, with 16-byte
+//     cp.async into rows padded by 16 bytes (ldmatrix without bank
+//     conflicts), and keeps them there across the block's whole chunk of
+//     columns;
+//   - streams f1 tiles of N rows through a ring of NST shared-memory stages,
+//     NST-1 ahead of the products, so each tile crosses L2 once a block and
+//     feeds all 8 warps; f1 rows are the columns of the col-major B operand,
+//     read with plain ldmatrix.x4;
+//   - gives each warp 32 rows x N/(8/WR) columns as m16n8k16 accumulators,
+//     so every ldmatrix.x4 fragment feeds 4 mma.sync;
+//   - runs the scale, the mask bias, the exponentials and every reduction on
+//     the accumulators: row statistics are carried across the chunk in
+//     registers (quad shuffles, one exchange across the warps of a row at
+//     the end), column partials per tile go through shuffles across the
+//     warp's rows and a small shared buffer across warps.  conf is formed
+//     once per element and feeds both the row best and the column max, so
+//     best_val[i] and colconf[best_j[i]] come from the same float.
+// Tile shapes and chunk counts: see bf16_plan in ops/kernels/dual_softmax.py
+// and tools/dual_softmax_tile_sweep.py.
 
+#include "mma_tile.cuh"
 #include "sim_tile.cuh"
 
 namespace loftr {
@@ -306,9 +335,434 @@ int launch(const void* f0, const void* f1, const void* m0, const void* m1,
   return (int)cudaGetLastError();
 }
 
+
+// ---- bfloat16, C = 256: mma.sync on a resident row tile ------------------
+
+namespace bf {
+
+using mma::bf16;
+constexpr int kC = 256;          // the coarse width of every preset
+constexpr int kLd = kC + 8;      // shared row stride: 528 bytes, 33 x 16
+constexpr int kChunks = kC / 8;  // 16-byte chunks a row
+constexpr int kSmemSM = 233472;  // shared memory an SM (H100), 1 KB a block
+
+// WR warps down the R = 32*WR rows, 8/WR across the N = 64*NJ/WR columns;
+// each warp owns 32 rows x 8*NJ columns; NST ring stages of N f1 rows.
+template <int WR, int NJ, int NST>
+struct Cfg {
+  static constexpr int kWC = 8 / WR;
+  static constexpr int kR = 32 * WR;
+  static constexpr int kN = 8 * NJ * kWC;
+  static constexpr int kRed = 2 * WR * kN > 2 * kR * kWC ? 2 * WR * kN
+                                                          : 2 * kR * kWC;
+  static constexpr size_t kSmem =
+      (size_t)(kR + NST * kN) * kLd * sizeof(bf16) + kRed * sizeof(float);
+  static constexpr int kMinBlocks = 2 * (kSmem + 1024) <= kSmemSM ? 2 : 1;
+};
+
+// rows [0, n) of a [*, kC] bf16 matrix -> dst (row stride kLd) by cp.async,
+// rows [n, ROWS) zero-filled; the copies join the caller's next group.
+template <int ROWS>
+__device__ __forceinline__ void stage_rows(bf16* dst,
+                                           const bf16* __restrict__ src,
+                                           int n) {
+#pragma unroll
+  for (int i = 0; i < ROWS * kChunks / kThreads; ++i) {
+    const int idx = threadIdx.x + kThreads * i;
+    const int r = idx / kChunks, c = (idx % kChunks) * 8;
+    if (r < n)
+      mma::cp_async16(dst + r * kLd + c, src + (size_t)r * kC + c);
+    else
+      *reinterpret_cast<uint4*>(dst + r * kLd + c) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// (v, j) beats (bv, bj): larger, or equal with the lower index.
+__device__ __forceinline__ bool better(float v, int j, float bv, int bj) {
+  return v > bv || (v == bv && j < bj);
+}
+
+// One pass over the block's row tile x column chunk.
+//   MODE 0: row (max, sumexp) partials per chunk -> row_pa, row_pb;
+//           column (max, sumexp) partials per row tile -> col_pa, col_pb.
+//   MODE 1: with rstat = [rmax; 1/rsum] [2, B, L] and cstat = [cmax;
+//           1/csum] [2, B, S]: row (best conf, lowest argmax) per chunk ->
+//           row_pa, row_pb (int); column max of conf per row tile -> col_pa.
+// m0 / m1 may be null (no masks).  Thread (warp, lane) holds rows
+// wr*32 + 16*mt + g + 8*h and columns wc*8*NJ + 8*j + 2*q + e of each tile
+// (g = lane/4, q = lane%4), acc[mt][j][2*h + e] (mma.m16n8k16 layout).
+template <int WR, int NJ, int NST, int MODE>
+__global__ void __launch_bounds__(kThreads, (Cfg<WR, NJ, NST>::kMinBlocks))
+    dual_softmax_bf16(const bf16* __restrict__ f0, const bf16* __restrict__ f1,
+                      const float* __restrict__ m0,
+                      const float* __restrict__ m1,
+                      const float* __restrict__ rstat,
+                      const float* __restrict__ cstat,
+                      float* __restrict__ row_pa, float* __restrict__ row_pb,
+                      float* __restrict__ col_pa, float* __restrict__ col_pb,
+                      int B, int L, int S, int chunk_tiles, float scale) {
+  using K = Cfg<WR, NJ, NST>;
+  constexpr int WC = K::kWC, R = K::kR, N = K::kN;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* As = (bf16*)smem_raw;                  // [R][kLd] the f0 rows
+  bf16* ring = As + R * kLd;                   // NST x [N][kLd] f1 rows
+  float* red = (float*)(ring + NST * N * kLd);  // cross-warp partials
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int wr = warp / WC, wc = warp % WC;
+  const int rt = blockIdx.x, chunk = blockIdx.y, b = blockIdx.z;
+  const int nrt = gridDim.x, nch = gridDim.y;
+  const int i0 = rt * R;
+  const int t0 = chunk * chunk_tiles;
+  const int nt = min(chunk_tiles, (S + N - 1) / N - t0);
+  const bf16* f1b = f1 + (size_t)b * S * kC;
+
+  stage_rows<R>(As, f0 + ((size_t)b * L + i0) * kC, min(R, L - i0));
+#pragma unroll
+  for (int s = 0; s < NST - 1; ++s) {
+    if (s < nt) {
+      const int j0 = (t0 + s) * N;
+      stage_rows<N>(ring + s * N * kLd, f1b + (size_t)j0 * kC,
+                    min(N, S - j0));
+    }
+    mma::cp_async_commit();
+  }
+
+  // per row x = 2*mt + h: its index, mask bias, and the carried statistics
+  int rows[4];
+  float rbias[4], ra[4], rb[4], rmx[4], rinv[4];
+  int rj[4];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    rows[x] = i0 + wr * 32 + (x >> 1) * 16 + g + 8 * (x & 1);
+    const bool ok = rows[x] < L;
+    const size_t o = (size_t)b * L + rows[x];
+    rbias[x] = !ok ? -INFINITY : m0 != nullptr ? (m0[o] - 1.f) * kBig : 0.f;
+    ra[x] = MODE == 0 ? -INFINITY : -1.f;  // running max | best conf
+    rb[x] = 0.f;                           // running sumexp
+    rj[x] = 0;                             // best column
+    rmx[x] = MODE == 1 && ok ? rstat[o] : 0.f;
+    rinv[x] = MODE == 1 && ok ? rstat[(size_t)B * L + o] : 0.f;
+  }
+
+  // ldmatrix lane addresses: A rows lane%16, k halves lane/16; B (f1 rows
+  // = n) the four 8x8 matrices (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15,
+  // k 0-7), (n 8-15, k 8-15): b0, b1 of one n8 tile, then of the next.
+  const bf16* a_lane = As + (wr * 32 + (lane & 15)) * kLd + (lane >> 4) * 8;
+  const int b_lane =
+      (wc * 8 * NJ + (lane & 7) + ((lane >> 4) & 1) * 8) * kLd +
+      ((lane >> 3) & 1) * 8;
+
+  for (int t = 0; t < nt; ++t) {
+    mma::cp_async_wait<NST - 2>();  // this thread's copies of tile t are in
+    __syncthreads();                // everyone's; tile t-1 and red are free
+    const int nx = t + NST - 1;
+    if (nx < nt) {
+      const int jn = (t0 + nx) * N;
+      stage_rows<N>(ring + (nx % NST) * N * kLd, f1b + (size_t)jn * kC,
+                    min(N, S - jn));
+    }
+    mma::cp_async_commit();
+
+    float acc[2][NJ][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][j][i] = 0.f;
+    const bf16* bs = ring + (t % NST) * N * kLd + b_lane;
+#pragma unroll
+    for (int k = 0; k < kC; k += 16) {
+      uint32_t a[2][4];
+      mma::ldmatrix_x4(a[0], a_lane + k);
+      mma::ldmatrix_x4(a[1], a_lane + 16 * kLd + k);
+#pragma unroll
+      for (int p = 0; p < NJ / 2; ++p) {
+        uint32_t bq[4];
+        mma::ldmatrix_x4(bq, bs + p * 16 * kLd + k);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma::mma_bf16(acc[mt][2 * p], a[mt], bq[0], bq[1]);
+          mma::mma_bf16(acc[mt][2 * p + 1], a[mt], bq[2], bq[3]);
+        }
+      }
+    }
+
+    // sim (MODE 0) or conf (MODE 1) in place, one expression an element.
+    // The mask term (m0 m1 - 1) * 1e9 of 0/1 masks is the smaller of the
+    // row's and the column's (m - 1) * 1e9; cells outside [L) x [S) take a
+    // -inf bias, so sim -inf (MODE 0) or conf 0 (MODE 1: rinv and cinv are
+    // 0 there), which never win a reduction over a valid cell of lower
+    // index.  Exponentials by the SFU (ex2.approx, __expf).
+    const int j0 = (t0 + t) * N;
+    const int cw = wc * 8 * NJ + 2 * q;  // + 8*j + e: column in the tile
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = j0 + cw + 8 * j + e;
+        const bool cok = c < S;
+        const size_t o = (size_t)b * S + c;
+        const float cbias =
+            !cok ? -INFINITY : m1 != nullptr ? (m1[o] - 1.f) * kBig : 0.f;
+        const float cmx = MODE == 1 && cok ? cstat[o] : 0.f;
+        const float cinv = MODE == 1 && cok ? cstat[(size_t)B * S + o] : 0.f;
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          float& v = acc[x >> 1][j][2 * (x & 1) + e];
+          const float sim = fmaf(v, scale, fminf(rbias[x], cbias));
+          if (MODE == 0)
+            v = sim;
+          else
+            v = __expf(sim - rmx[x]) * rinv[x] * (__expf(sim - cmx) * cinv);
+        }
+      }
+
+    // rows: MODE 0 online max / sumexp, each thread's sum relative to the
+    // quad's common max; MODE 1 best value, ascending columns, ties kept
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int mt = x >> 1, hi = 2 * (x & 1);
+      if (MODE == 0) {
+        float tmax = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          tmax = fmaxf(tmax, fmaxf(acc[mt][j][hi], acc[mt][j][hi + 1]));
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+        const float nm = fmaxf(ra[x], tmax);
+        if (nm != -INFINITY) {
+          float ts = 0.f;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+            ts += __expf(acc[mt][j][hi] - nm) +
+                  __expf(acc[mt][j][hi + 1] - nm);
+          rb[x] = rb[x] * __expf(ra[x] - nm) + ts;
+          ra[x] = nm;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (acc[mt][j][hi + e] > ra[x]) {
+              ra[x] = acc[mt][j][hi + e];
+              rj[x] = j0 + cw + 8 * j + e;
+            }
+      }
+    }
+
+    // columns: the warp's 32 rows by shuffles across g, then red[wr][col]
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float cm = fmaxf(fmaxf(acc[0][j][e], acc[0][j][2 + e]),
+                         fmaxf(acc[1][j][e], acc[1][j][2 + e]));
+        cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 4));
+        cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 8));
+        cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 16));
+        const int cl = cw + 8 * j + e;
+        if (MODE == 0) {
+          float cs =
+              __expf(acc[0][j][e] - cm) + __expf(acc[0][j][2 + e] - cm) +
+              __expf(acc[1][j][e] - cm) + __expf(acc[1][j][2 + e] - cm);
+          cs += __shfl_xor_sync(0xffffffffu, cs, 4);
+          cs += __shfl_xor_sync(0xffffffffu, cs, 8);
+          cs += __shfl_xor_sync(0xffffffffu, cs, 16);
+          if (g == 0) red[(WR + wr) * N + cl] = cm == -INFINITY ? 0.f : cs;
+        }
+        if (g == 0) red[wr * N + cl] = cm;
+      }
+    __syncthreads();
+    if (threadIdx.x < N && j0 + (int)threadIdx.x < S) {
+      const int cl = threadIdx.x;
+      const size_t o = ((size_t)b * nrt + rt) * S + j0 + cl;
+      float m = red[cl];
+#pragma unroll
+      for (int w = 1; w < WR; ++w) m = fmaxf(m, red[w * N + cl]);
+      col_pa[o] = m;
+      if (MODE == 0) {
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < WR; ++w) {
+          const float sw = red[(WR + w) * N + cl];
+          if (sw > 0.f) s += sw * expf(red[w * N + cl] - m);
+        }
+        col_pb[o] = s;
+      }
+    }
+  }
+
+  // rows: the quad, then the WC warps of the row through red[row][wc]
+  __syncthreads();  // the last column combine has read red
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    float va = ra[x], vb = rb[x];
+    int vj = rj[x];
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      if (MODE == 0) {
+        vb += __shfl_xor_sync(0xffffffffu, vb, o);
+      } else {
+        const float ov = __shfl_xor_sync(0xffffffffu, va, o);
+        const int oj = __shfl_xor_sync(0xffffffffu, vj, o);
+        if (better(ov, oj, va, vj)) {
+          va = ov;
+          vj = oj;
+        }
+      }
+    }
+    if (q == 0) {
+      const int r = rows[x] - i0;
+      red[(r * WC + wc) * 2] = va;
+      red[(r * WC + wc) * 2 + 1] = MODE == 0 ? vb : __int_as_float(vj);
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < R && i0 + (int)threadIdx.x < L) {
+    const int r = threadIdx.x;
+    const size_t o = ((size_t)b * nch + chunk) * L + i0 + r;
+    const float* p = red + r * WC * 2;
+    if (MODE == 0) {
+      float m = p[0];
+#pragma unroll
+      for (int w = 1; w < WC; ++w) m = fmaxf(m, p[2 * w]);
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < WC; ++w)
+        if (p[2 * w + 1] > 0.f) s += p[2 * w + 1] * expf(p[2 * w] - m);
+      row_pa[o] = m;
+      row_pb[o] = s;
+    } else {
+      float bv = p[0];
+      int bj = __float_as_int(p[1]);
+#pragma unroll
+      for (int w = 1; w < WC; ++w)
+        if (better(p[2 * w], __float_as_int(p[2 * w + 1]), bv, bj)) {
+          bv = p[2 * w];
+          bj = __float_as_int(p[2 * w + 1]);
+        }
+      row_pa[o] = bv;
+      ((int*)row_pb)[o] = bj;
+    }
+  }
+}
+
+// Pass 1's row partials [B, nch, L] and column partials [B, nrt, S] ->
+// rstat = [rmax; 1/rsum] [2, B, L] and cstat = [cmax; 1/csum] [2, B, S]:
+// log-sum-exp over the partials in ascending order, rows and columns in one
+// launch.
+__global__ void stats_combine(const float* __restrict__ row_pa,
+                              const float* __restrict__ row_pb,
+                              const float* __restrict__ col_pa,
+                              const float* __restrict__ col_pb, int nch,
+                              int nrt, int B, int L, int S,
+                              float* __restrict__ rstat,
+                              float* __restrict__ cstat) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool row = i < B * L;
+  if (!row) i -= B * L;
+  const int len = row ? L : S, n = row ? nch : nrt;
+  if (i >= B * len) return;
+  const int b = i / len, k = i % len;
+  const float* a = (row ? row_pa : col_pa) + (size_t)b * n * len + k;
+  const float* s = (row ? row_pb : col_pb) + (size_t)b * n * len + k;
+  float m = -INFINITY;
+  for (int t = 0; t < n; ++t) m = fmaxf(m, a[(size_t)t * len]);
+  float sum = 0.f;
+  for (int t = 0; t < n; ++t) {
+    const float st = s[(size_t)t * len];
+    if (st > 0.f) sum += st * expf(a[(size_t)t * len] - m);
+  }
+  float* out = row ? rstat : cstat;
+  out[i] = m;
+  out[(size_t)B * len + i] = 1.f / sum;
+}
+
+// Pass 2's partials -> best_val, best_j [B, L] (chunks in ascending order,
+// ties keep the lowest index) and colconf [B, S], in one launch.
+__global__ void best_combine(const float* __restrict__ row_pa,
+                             const int* __restrict__ row_pb,
+                             const float* __restrict__ col_pa, int nch,
+                             int nrt, int B, int L, int S,
+                             float* __restrict__ best_val,
+                             int* __restrict__ best_j,
+                             float* __restrict__ colconf) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < B * L) {
+    const int b = i / L, k = i % L;
+    float bv = -1.f;
+    int bj = 0;
+    for (int t = 0; t < nch; ++t) {
+      const size_t o = ((size_t)b * nch + t) * L + k;
+      if (row_pa[o] > bv) {
+        bv = row_pa[o];
+        bj = row_pb[o];
+      }
+    }
+    best_val[i] = bv;
+    best_j[i] = bj;
+    return;
+  }
+  i -= B * L;
+  if (i >= B * S) return;
+  const int b = i / S, k = i % S;
+  float m = -1.f;
+  for (int t = 0; t < nrt; ++t)
+    m = fmaxf(m, col_pa[((size_t)b * nrt + t) * S + k]);
+  colconf[i] = m;
+}
+
+// Both passes and their combines: 4 launches.  Scratch: row_pa, row_pb
+// [B, nch, L], col_pa, col_pb [B, nrt, S], rstat [2, B, L], cstat [2, B, S]
+// (float), nrt = ceil(L/R), nch = ceil(ceil(S/N) / chunk_tiles).
+template <int WR, int NJ, int NST>
+int launch(const void* f0, const void* f1, const void* m0, const void* m1,
+           void* row_pa, void* row_pb, void* col_pa, void* col_pb,
+           void* rstat, void* cstat, void* best_val, void* best_j,
+           void* colconf, int B, int L, int S, int chunk_tiles, float scale,
+           cudaStream_t st) {
+  using K = Cfg<WR, NJ, NST>;
+  static const cudaError_t a0 = cudaFuncSetAttribute(
+      dual_softmax_bf16<WR, NJ, NST, 0>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::kSmem);
+  static const cudaError_t a1 = cudaFuncSetAttribute(
+      dual_softmax_bf16<WR, NJ, NST, 1>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::kSmem);
+  (void)a0;
+  (void)a1;
+  if (chunk_tiles < 1) return (int)cudaErrorInvalidValue;
+  const int nrt = (L + K::kR - 1) / K::kR;
+  const int nct = (S + K::kN - 1) / K::kN;
+  const int nch = (nct + chunk_tiles - 1) / chunk_tiles;
+  const dim3 grid(nrt, nch, B);
+  // combines: one thread a row or column, 64 a block so that B = 1's
+  // (L + S) threads spread over the SMs
+  const int ncomb = (B * (L + S) + 63) / 64;
+  const bf16 *F0 = (const bf16*)f0, *F1 = (const bf16*)f1;
+  const float *M0 = (const float*)m0, *M1 = (const float*)m1;
+  float *RA = (float*)row_pa, *RB = (float*)row_pb, *CA = (float*)col_pa,
+        *CB = (float*)col_pb, *RS = (float*)rstat, *CS = (float*)cstat;
+  dual_softmax_bf16<WR, NJ, NST, 0><<<grid, kThreads, K::kSmem, st>>>(
+      F0, F1, M0, M1, nullptr, nullptr, RA, RB, CA, CB, B, L, S, chunk_tiles,
+      scale);
+  stats_combine<<<ncomb, 64, 0, st>>>(RA, RB, CA, CB, nch, nrt, B, L, S, RS,
+                                       CS);
+  dual_softmax_bf16<WR, NJ, NST, 1><<<grid, kThreads, K::kSmem, st>>>(
+      F0, F1, M0, M1, RS, CS, RA, RB, CA, CB, B, L, S, chunk_tiles, scale);
+  best_combine<<<ncomb, 64, 0, st>>>(RA, (const int*)RB, CA, nch, nrt, B, L,
+                                      S, (float*)best_val, (int*)best_j,
+                                      (float*)colconf);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bf
 }  // namespace
 }  // namespace loftr
 
+// float features (dtype 0; bfloat16 goes to loftr_dual_softmax_bf16).
 // f0 [B, L, C], f1 [B, S, C] (T); m0 [B, L], m1 [B, S] float 0/1.
 // Scratch: row_pa, row_pb [B, nch, L] (4-byte), col_pa, col_pb [B, nrt, S]
 // float, with nrt = ceil(L/64), nch = ceil(ceil(S/64) / chunk_tiles).
@@ -323,11 +777,7 @@ extern "C" int loftr_dual_softmax(const void* f0, const void* f1,
                                   int S, int C, int chunk_tiles, float scale,
                                   int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 1)
-    return loftr::launch<__nv_bfloat16>(f0, f1, m0, m1, row_pa, row_pb, col_pa,
-                                        col_pb, rmax, rsum, cmax, csum,
-                                        best_val, best_j, colconf, B, L, S, C,
-                                        chunk_tiles, scale, st);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;  // bf16: entry below
   return loftr::launch<float>(f0, f1, m0, m1, row_pa, row_pb, col_pa, col_pb,
                               rmax, rsum, cmax, csum, best_val, best_j,
                               colconf, B, L, S, C, chunk_tiles, scale, st);
@@ -352,4 +802,29 @@ extern "C" int loftr_dual_softmax_stats(const void* f0, const void* f1,
   return loftr::launch_stats<float>(f0, f1, m0, m1, row_pa, row_pb, col_pa,
                                     col_pb, rmax, rsum, cmax, csum, B, L, S, C,
                                     chunk_tiles, scale, st);
+}
+
+// bfloat16, C = 256: f0 [B, L, 256], f1 [B, S, 256], 16-byte aligned;
+// m0 [B, L], m1 [B, S] float 0/1, or both null (no masks).  rows x cols:
+// the tile shape (R x N); the launcher takes the shapes bf16_plan in
+// ops/kernels/dual_softmax.py returns.  Scratch (float): row_pa, row_pb
+// [B, nch, L], col_pa, col_pb [B, nrt, S], rstat [2, B, L], cstat
+// [2, B, S], with nrt = ceil(L/rows), nch = ceil(ceil(S/cols) /
+// chunk_tiles).  Outputs: best_val [B, L], best_j [B, L] int32, colconf
+// [B, S].
+extern "C" int loftr_dual_softmax_bf16(
+    const void* f0, const void* f1, const void* m0, const void* m1,
+    void* row_pa, void* row_pb, void* col_pa, void* col_pb, void* rstat,
+    void* cstat, void* best_val, void* best_j, void* colconf, int B, int L,
+    int S, int C, int rows, int cols, int chunk_tiles, float scale,
+    void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (C != loftr::bf::kC || ((uintptr_t)f0 | (uintptr_t)f1) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 128 && cols == 128)
+    return loftr::bf::launch<4, 8, 2>(f0, f1, m0, m1, row_pa, row_pb, col_pa,
+                                      col_pb, rstat, cstat, best_val, best_j,
+                                      colconf, B, L, S, chunk_tiles, scale,
+                                      st);
+  return (int)cudaErrorInvalidValue;
 }

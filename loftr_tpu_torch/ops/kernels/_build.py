@@ -37,6 +37,7 @@ SIGNATURES = {
     "loftr_dual_softmax": [_P] * 15 + [_I] * 5 + [_F, _I, _P],
     "loftr_fine_stage": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
     "loftr_dual_softmax_stats": [_P] * 12 + [_I] * 5 + [_F, _I, _P],
+    "loftr_dual_softmax_bf16": [_P] * 13 + [_I] * 7 + [_F, _P],
     "loftr_focal_fwd": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_I, _P],
     "loftr_focal_bwd": [_P] * 18 + [_I] * 5 + [_F] * 3 + [_I, _P],
     "loftr_sinkhorn": [_P] * 21 + [_I] * 7 + [_F, _I, _P],
