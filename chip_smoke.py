@@ -7,7 +7,8 @@ Phases, each of which must pass (any failure exits non-zero):
   1. environment: card name and power limit, versions, kernel build time
      (the kernels build from ``loftr_tpu_torch/csrc`` at first use), and
      ``ptxas`` registers; fails if a kernel of ``coarse_layer.cu`` or
-     ``fine_stage.cu``, or a bf16 pass of ``dual_softmax.cu``, spills;
+     ``fine_stage.cu``, or a bf16 pass of ``dual_softmax.cu`` or
+     ``sinkhorn.cu``, spills;
   2. each CUDA kernel against its plain PyTorch version on the card, at the
      shapes of the indoor_ds 640x480 main paths, in float32 and bfloat16
      (the coarse layer also at ragged masked lengths, and timed at both of
@@ -19,8 +20,10 @@ Phases, each of which must pass (any failure exits non-zero):
      the focal-loss kernels: sums
      and both gradients at B=2, the training batch; the hybrid fine stage:
      its gradients against autograd of the plain fine stage; the Sinkhorn
-     kernel at B=2 and B=1, masked and unmasked, ``prefilter`` off and on;
-     the window-attention and upsample kernels);
+     kernel at B=2 and B=1, masked and unmasked, ``prefilter`` off and on,
+     at a ragged masked pair L=4700 / S=4750 at B=2, L=S=7, and L=4800 /
+     S=1200 and its mirror, timed at B=1 and B=8 with ``prefilter`` off and
+     on; the window-attention and upsample kernels);
   3. the inference slice in float32, card (kernels) against CPU (plain);
   4. the flagship indoor_ds preset in bfloat16 at 640x480: ``match_pair``
      at B=1 and the batched model call at B=8, timed with CUDA events, with
@@ -38,9 +41,10 @@ Phases, each of which must pass (any failure exits non-zero):
   7. the OT inference slice (``indoor_ot``) in float32, card against CPU;
   8. the OT main path in bfloat16 at 640x480: ``match_pair`` with
      ``indoor_ot`` at B=1 and the batched model call at B=8, timed as in
-     phase 4; then, once each at B=1, the backbone with the upsample switch
-     on and the fine layer stack with ``fused_window_attn`` on, each
-     compared with the switch off;
+     phase 4 (the match stage's device time split into kernel E's bf16
+     passes and combines); then, once each at B=1, the backbone with the
+     upsample switch on and the fine layer stack with ``fused_window_attn``
+     on, each compared with the switch off;
   9. ``Trainer.train_step`` with ``indoor_ot`` in bfloat16 at B=2: 4 steps,
      finite losses, a finite non-zero gradient into ``bin_score``.
 Each main path (one ``match_pair`` call of each preset; the 8 training
@@ -73,6 +77,12 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
 H, W = 480, 640
+# the combine kernels of the two matchers' bf16 paths, as the profiler names
+# them (device_ms)
+MATCH_COMBINES = {
+    "dual_softmax": ("bf::stats_combine", "bf::best_combine"),
+    "sinkhorn": ("bin_kernel", "u_combine_kernel", "v_combine_kernel",
+                 "row_best_kernel", "col_best_kernel")}
 
 
 def emit(obj, log):
@@ -127,14 +137,16 @@ def device_ms(fn, iters=10, tries=3):
 
 def ptxas_summary():
     """From the loaded kernel library's ``ptxas -v`` build log: registers of
-    each kernel of coarse_layer.cu and fine_stage.cu and of dual_softmax.cu's
-    bf16 passes, and every kernel of any source that spills."""
+    each kernel of coarse_layer.cu and fine_stage.cu and of the bf16 passes
+    of dual_softmax.cu and sinkhorn.cu, and every kernel of any source that
+    spills."""
     import re
     from loftr_tpu_torch.ops.kernels import _build
     path = os.path.join(_build.build_dir, "build.log")
     if not os.path.exists(path):
         return None
-    regs, fregs, bregs, spills, src, name = {}, {}, {}, [], None, None
+    regs, fregs, bregs, eregs, spills = {}, {}, {}, {}, []
+    src = name = None
     for line in open(path):
         if line.startswith("== "):
             src = line[3:].strip()
@@ -159,6 +171,11 @@ def ptxas_summary():
             if k:
                 bregs["dual_softmax_bf16<%s>" % ", ".join(k.groups())] = \
                     int(m.group(1))
+        if m and name and src == "sinkhorn.cu":
+            k = re.search(r"sinkhorn_bf16ILi(\d)ELi(\d)ELi(\d)ELi(\d)E", name)
+            if k:
+                eregs["sinkhorn_bf16<%s>" % ", ".join(k.groups())] = \
+                    int(m.group(1))
         if m and name and src == "fine_stage.cu":
             k = re.search(
                 r"(fine_stage_bf16|fine_stage_kernel)(?:ILi(\d+)E)?", name)
@@ -167,7 +184,7 @@ def ptxas_summary():
             fregs[short] = int(m.group(1))
     return {"coarse_layer_registers": regs, "fine_stage_registers": fregs,
             "dual_softmax_bf16_registers": bregs,
-            "spilling_kernels": spills}
+            "sinkhorn_bf16_registers": eregs, "spilling_kernels": spills}
 
 
 def bound_ms(flops, nbytes, peak_flops):
@@ -491,16 +508,18 @@ def kernel_checks(dev, log, results):
     for k, v in results.items():
         emit({"phase": 2, "kernel": k, "timing": v}, log)
 
-def ot_case(rng, B, L, C, n_plant):
+def ot_case(rng, B, L, C, n_plant, S=None):
     """Features with a = 4 per channel: a planted correspondence has sim
     about 16 against N(0, 1) for unrelated cells, so its row and column beat
-    the dustbin while the cells without a partner do not.  n_plant = L
-    plants a full permutation (no cell prefers the dustbin)."""
+    the dustbin while the cells without a partner do not.  n_plant = L = S
+    plants a full permutation (no cell prefers the dustbin).  S defaults to
+    L."""
     import numpy as np
+    S = L if S is None else S
     f0 = (rng.randn(B, L, C) * 4).astype(np.float32)
-    f1 = (rng.randn(B, L, C) * 4).astype(np.float32)
+    f1 = (rng.randn(B, S, C) * 4).astype(np.float32)
     for b in range(B):
-        ii, jj = rng.permutation(L)[:n_plant], rng.permutation(L)[:n_plant]
+        ii, jj = rng.permutation(L)[:n_plant], rng.permutation(S)[:n_plant]
         f1[b, jj] = f0[b, ii] + 0.4 * rng.randn(len(ii), C).astype(np.float32)
     return f0, f1
 
@@ -530,22 +549,17 @@ def new_kernel_checks(dev, log, results):
     data = {"partial": (ot_case(rng, B, L, C, 1500), 1.5),
             "full": (ot_case(rng, B, L, C, L), 0.5)}
     errE = {}
-    # B=2 holds the per-pair offsets; B=1 is match_pair's own shape, where
-    # the column chunks are cut differently (the chunk count follows B)
-    for name, masked, prefilter, nb in (("partial", False, False, B),
-                                        ("partial", False, True, B),
-                                        ("partial", True, True, B),
-                                        ("full", False, True, B),
-                                        ("full", True, False, B),
-                                        ("partial", False, False, 1),
-                                        ("partial", True, True, 1)):
-        (f0, f1), bin_score = data[name]
+
+    def caseE(name, f0, f1, mk0, mk1, bin_score, prefilter):
+        """Both dtypes of one case against sinkhorn_plain, at the bars
+        below; returns {dtype: max abs error}."""
         alpha = torch.tensor(bin_score, device=dev)
+        errs = {}
         for dt in (f32, bf16):
-            a = torch.from_numpy(f0[:nb]).to(dev, dt)
-            b = torch.from_numpy(f1[:nb]).to(dev, dt)
-            m0 = torch.from_numpy(masks[0][:nb]).to(dev) if masked else None
-            m1 = torch.from_numpy(masks[1][:nb]).to(dev) if masked else None
+            a = torch.from_numpy(f0).to(dev, dt)
+            b = torch.from_numpy(f1).to(dev, dt)
+            m0 = None if mk0 is None else torch.from_numpy(mk0).to(dev)
+            m1 = None if mk1 is None else torch.from_numpy(mk1).to(dev)
             kv, kj, kc, k0, k1 = KE.fused_sinkhorn_match(
                 a, b, alpha, 3, m0, m1, prefilter=prefilter)
             pv, pj, pc, p0, p1, conf, mar0, mar1 = KE.sinkhorn_plain(
@@ -583,8 +597,10 @@ def new_kernel_checks(dev, log, results):
             dv = float(((kv - pv).abs() * keep_r).max())
             dc = float(((kc - pc).abs() * keep_c).max())
             rec = {"phase": 2, "kernel": "sinkhorn", "case": name,
-                   "bin_score": bin_score, "masked": masked,
-                   "prefilter": prefilter, "batch": nb, "dtype": str(dt)[6:],
+                   "shape": [*a.shape[:2], b.shape[1], C],
+                   "bin_score": bin_score, "masked": mk0 is not None,
+                   "prefilter": prefilter, "batch": a.shape[0],
+                   "dtype": str(dt)[6:],
                    "best_val_max_abs_err": dv, "colconf_max_abs_err": dc,
                    "best_j_mismatch": int(j_diff.sum()),
                    "flag_mismatch": int((k0 != p0).sum() + (k1 != p1).sum()),
@@ -596,29 +612,106 @@ def new_kernel_checks(dev, log, results):
                    "ok": okv and okc and j_bad + f_bad + v_bad == 0}
             emit(rec, log)
             check(rec["ok"], f"sinkhorn disagrees: {rec}")
-            errE[(name, masked, prefilter, nb, dt)] = max(dv, dc)
+            errs[dt] = max(dv, dc)
             del pv, pj, pc, p0, p1, mar0, mar1
+        return errs
+
+    # B=2 holds the per-pair offsets; B=1 is match_pair's own shape, where
+    # the column chunks are cut differently (the chunk count follows B)
+    for name, masked, prefilter, nb in (("partial", False, False, B),
+                                        ("partial", False, True, B),
+                                        ("partial", True, True, B),
+                                        ("full", False, True, B),
+                                        ("full", True, False, B),
+                                        ("partial", False, False, 1),
+                                        ("partial", True, True, 1)):
+        (f0, f1), bin_score = data[name]
+        errs = caseE(name, f0[:nb], f1[:nb],
+                     masks[0][:nb] if masked else None,
+                     masks[1][:nb] if masked else None, bin_score, prefilter)
+        errE[(name, masked, prefilter, nb)] = errs[bf16]
+    # ragged shapes, no multiple of a tile, and the two orientations' plans
+    # cut differently (L=4800 with S=1200 and its mirror); their own
+    # generator, so that the other kernels' inputs stay as they were
+    re_ = np.random.RandomState(5)
+    for name, B_, L_, S_, masked, prefilter in (
+            ("ragged_B2", 2, L - 100, L - 50, True, True),
+            ("L7_S7", 1, 7, 7, True, True),
+            ("L4800_S1200", 1, L, L // 4, False, False),
+            ("L1200_S4800", 1, L // 4, L, True, True)):
+        f0, f1 = ot_case(re_, B_, L_, C, min(L_, S_) * 3 // 10, S_)
+        mk = (re_.rand(B_, L_) > 0.1, re_.rand(B_, S_) > 0.1) if masked \
+            else (None, None)
+        caseE(name, f0, f1, *mk, 1.5, prefilter)
+    # what the bf16 path does not take raises, with no fallback: C != 256,
+    # and features 2 bytes off the 16-byte alignment
+    alpha = torch.tensor(1.5, device=dev)
+    narrow = torch.zeros((1, 7, 128), device=dev, dtype=bf16)
+    shifted = torch.zeros(7 * C + 1, device=dev, dtype=bf16)[1:].view(1, 7, C)
+    for x in (narrow, shifted):
+        try:
+            KE.fused_sinkhorn_match(x, x, alpha, 3)
+            check(False, f"sinkhorn took bf16 {tuple(x.shape)} at offset "
+                  f"{x.data_ptr() % 16}")
+        except ValueError:
+            pass
+    # timing in bf16 at match_pair's launch (B=1) and the B=8 forward's,
+    # "partial" features, 3 iterations, prefilter off (the presets'
+    # default) and on: ms by CUDA events around back-to-back wrapper calls
+    # (host included), device_ms the profiler's time per call (every pass
+    # and combine), variant the pass kernels' profiled names.  Bound: the
+    # least work, one sim product per iteration and one for the final pass
+    # (one more with prefilter); features in, per-row best value + index +
+    # flag and per-column max + flag out.
     (f0, f1), bin_score = data["partial"]
-    a = torch.from_numpy(f0[:1]).to(dev, bf16)
-    b = torch.from_numpy(f1[:1]).to(dev, bf16)
+    f8 = ot_case(re_, 8, L, C, 1500)
+    # the B=8 forward's launch (8x the blocks of B=1), held to the bars
+    # above as timed (unmasked, prefilter off) and masked with prefilter
+    mk8 = (re_.rand(8, L) > 0.1, re_.rand(8, L) > 0.1)
+    caseE("B8", *f8, None, None, bin_score, False)
+    caseE("B8", *f8, *mk8, bin_score, True)
     alpha = torch.tensor(bin_score, device=dev)
-    ms = cuda_ms(lambda: KE.fused_sinkhorn_match(a, b, alpha, 3))
-    ms_pf = cuda_ms(lambda: KE.fused_sinkhorn_match(a, b, alpha, 3,
-                                                    prefilter=True))
-    plain = cuda_ms(lambda: KE.sinkhorn_plain(a, b, alpha, 3), iters=5)
-    # the least work: one sim product per iteration and one for the final
-    # pass (the kernel forms two per iteration); features in, per-row best
-    # value + index + flag and per-column max + flag out
-    flops = (3 + 1) * 2 * L * L * C
-    nbytes = 2 * L * C * 2 + L * 9 + L * 5
-    bnd, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+    tE = {}
+    for nb, (x0, x1) in ((1, (f0[:1], f1[:1])), (8, f8)):
+        a = torch.from_numpy(x0).to(dev, bf16)
+        b = torch.from_numpy(x1).to(dev, bf16)
+        rec = {"B": nb}
+        for pf in (False, True):
+            def run():
+                return KE.fused_sinkhorn_match(a, b, alpha, 3, prefilter=pf)
+            dms = device_ms(run) or {}
+            kern = sorted(k for k in dms if "sinkhorn_bf16<" in k)
+            sfx = "_prefilter" if pf else ""
+            rec["ms" + sfx] = cuda_ms(run, iters=20)
+            rec["device_ms" + sfx] = dms.get("total")
+            rec["pass_device_ms" + sfx] = sum(dms[k] for k in kern)
+            rec["variant" + sfx] = " ".join(kern) if kern else None
+            check(not dms or kern, f"sinkhorn: no bf16 pass in the profile: "
+                  f"{dms}")
+            flops = (3 + 1 + pf) * 2 * nb * L * L * C
+            nbytes = nb * (2 * L * C * 2 + L * 9 + L * 5)
+            rec["bound_ms" + sfx], rec["bound_by"] = bound_ms(
+                flops, nbytes, PEAK_BF16_FLOPS)
+        rec["plain_ms"] = cuda_ms(lambda: KE.sinkhorn_plain(a, b, alpha, 3),
+                                  iters=5 if nb == 1 else 2)
+        emit({"phase": 2, "kernel": "sinkhorn", "timing": f"B{nb}", **rec},
+             log)
+        tE[nb] = rec
+        del a, b
+    t1, t8 = tE[1], tE[8]
     results["sinkhorn"] = dict(
-        max_abs_err=errE[("partial", False, False, 1, bf16)], ms=ms,
-        plain_ms=plain, bound_ms=bnd, bound_by=by, library_ms=None,
-        bound_unit="bf16 tensor cores", ms_prefilter=ms_pf,
-        bound_ms_prefilter=bnd * 5 / 4,
-        shape="f0=f1 [1,4800,256] bf16, 3 iterations (checked there and "
-              "at [2,4800,256])")
+        max_abs_err=errE[("partial", False, False, 1)], ms=t1["ms"],
+        plain_ms=t1["plain_ms"], bound_ms=t1["bound_ms"],
+        bound_by=t1["bound_by"], library_ms=None,
+        bound_unit="bf16 tensor cores", device_ms=t1["device_ms"],
+        variant=t1["variant"], ms_prefilter=t1["ms_prefilter"],
+        device_ms_prefilter=t1["device_ms_prefilter"],
+        bound_ms_prefilter=t1["bound_ms_prefilter"], ms_B8=t8["ms"],
+        device_ms_B8=t8["device_ms"], plain_ms_B8=t8["plain_ms"],
+        bound_ms_B8=t8["bound_ms"], ms_B8_prefilter=t8["ms_prefilter"],
+        device_ms_B8_prefilter=t8["device_ms_prefilter"],
+        shape="f0=f1 [1,4800,256] bf16, 3 iterations (checked there, at "
+              "[2,4800,256], [8,4800,256] and at four ragged shapes)")
 
     # ---- kernel F: window attention, NB=2048 and 1024, 25 x 128, 8 heads --
     # tolerances: float32 -- sums in another order (2e-4, the JAX test's
@@ -1124,16 +1217,19 @@ def flagship_bf16(dev, log, phase=4, preset="indoor_ds",
                 "match_ms": cuda_ms(lambda: model.match(fc, inp)),
                 "fine_ms": cuda_ms(lambda: model.fine(fc, m, inp)),
             }
-            # the profiler's split of the match stage: kernel B's bf16 path
-            # (both passes and the two combines) against the whole stage
+            # the profiler's split of the match stage: the matcher kernel's
+            # bf16 path (its passes and combines, by name) against the
+            # whole stage
             md = device_ms(lambda: model.match(fc, inp)) or {}
             stage["match_device_ms"] = sum(
-                v for k, v in md.items()
-                if "dual_softmax_bf16<" in k or k.endswith("_combine"))
+                v for k, v in md.items() if k != "total" and (
+                    f"{matcher_kernel}_bf16<" in k
+                    or k in MATCH_COMBINES[matcher_kernel]))
             stage["match_device_total_ms"] = md.get("total")
-            if md and matcher_kernel == "dual_softmax":
-                check(any("dual_softmax_bf16<" in k for k in md),
-                      f"the match stage ran no bf16 kernel B: {md}")
+            if md:
+                check(any(f"{matcher_kernel}_bf16<" in k for k in md),
+                      f"the match stage ran no bf16 {matcher_kernel} "
+                      f"kernel: {md}")
             # the profiler's split of the fine stage: kernel C against the
             # whole stage (gather, merge and the rest)
             fd = device_ms(lambda: model.fine(fc, m, inp)) or {}
@@ -1572,17 +1668,19 @@ def main(argv=None):
               "ptxas": ptxas,
               "tf32": "cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False"},
              log)
-        # kernels A's and C's register tiles, and those of kernel B's bf16
-        # passes, are sized to fit without spilling
+        # kernels A's and C's register tiles, and those of kernels B's and
+        # E's bf16 passes, are sized to fit without spilling
         for src_name in ("coarse_layer.cu", "fine_stage.cu"):
             check(ptxas is None or not any(
                 k.startswith(src_name + ":")
                 for k in ptxas["spilling_kernels"]),
                 f"a kernel of {src_name} spills: {ptxas}")
-        check(ptxas is None or not any(
-            k.startswith("dual_softmax.cu:") and "dual_softmax_bf16" in k
-            for k in ptxas["spilling_kernels"]),
-            f"a bf16 pass of dual_softmax.cu spills: {ptxas}")
+        for src_name, kern in (("dual_softmax.cu", "dual_softmax_bf16"),
+                               ("sinkhorn.cu", "sinkhorn_bf16")):
+            check(ptxas is None or not any(
+                k.startswith(src_name + ":") and kern in k
+                for k in ptxas["spilling_kernels"]),
+                f"a bf16 pass of {src_name} spills: {ptxas}")
         results = {}
         main_counts = train_counts = ot_counts = None
         with torch.no_grad():  # the inference phases carry no graph
@@ -1648,7 +1746,9 @@ def main(argv=None):
                         "bound_ms_cross_B1", "variant", "ms_8192",
                         "device_ms_8192", "plain_ms_8192", "bound_ms_8192",
                         "variant_8192", "ms_B8", "device_ms_B8",
-                        "plain_ms_B8", "bound_ms_B8")
+                        "plain_ms_B8", "bound_ms_B8", "device_ms_prefilter",
+                        "bound_ms_prefilter", "ms_B8_prefilter",
+                        "device_ms_B8_prefilter")
             kernels = []
             for name, r in results.items():
                 kernels.append({

@@ -51,7 +51,7 @@
 // Tile shapes and chunk counts: see bf16_plan in ops/kernels/dual_softmax.py
 // and tools/dual_softmax_tile_sweep.py.
 
-#include "mma_tile.cuh"
+#include "sim_ring.cuh"
 #include "sim_tile.cuh"
 
 namespace loftr {
@@ -340,11 +340,7 @@ int launch(const void* f0, const void* f1, const void* m0, const void* m1,
 
 namespace bf {
 
-using mma::bf16;
-constexpr int kC = 256;          // the coarse width of every preset
-constexpr int kLd = kC + 8;      // shared row stride: 528 bytes, 33 x 16
-constexpr int kChunks = kC / 8;  // 16-byte chunks a row
-constexpr int kSmemSM = 233472;  // shared memory an SM (H100), 1 KB a block
+using namespace ring;  // bf16, kC, kLd, stage_rows, better, product, ...
 
 // WR warps down the R = 32*WR rows, 8/WR across the N = 64*NJ/WR columns;
 // each warp owns 32 rows x 8*NJ columns; NST ring stages of N f1 rows.
@@ -359,28 +355,6 @@ struct Cfg {
       (size_t)(kR + NST * kN) * kLd * sizeof(bf16) + kRed * sizeof(float);
   static constexpr int kMinBlocks = 2 * (kSmem + 1024) <= kSmemSM ? 2 : 1;
 };
-
-// rows [0, n) of a [*, kC] bf16 matrix -> dst (row stride kLd) by cp.async,
-// rows [n, ROWS) zero-filled; the copies join the caller's next group.
-template <int ROWS>
-__device__ __forceinline__ void stage_rows(bf16* dst,
-                                           const bf16* __restrict__ src,
-                                           int n) {
-#pragma unroll
-  for (int i = 0; i < ROWS * kChunks / kThreads; ++i) {
-    const int idx = threadIdx.x + kThreads * i;
-    const int r = idx / kChunks, c = (idx % kChunks) * 8;
-    if (r < n)
-      mma::cp_async16(dst + r * kLd + c, src + (size_t)r * kC + c);
-    else
-      *reinterpret_cast<uint4*>(dst + r * kLd + c) = make_uint4(0, 0, 0, 0);
-  }
-}
-
-// (v, j) beats (bv, bj): larger, or equal with the lower index.
-__device__ __forceinline__ bool better(float v, int j, float bv, int bj) {
-  return v > bv || (v == bv && j < bj);
-}
 
 // One pass over the block's row tile x column chunk.
 //   MODE 0: row (max, sumexp) partials per chunk -> row_pa, row_pb;
@@ -445,13 +419,8 @@ __global__ void __launch_bounds__(kThreads, (Cfg<WR, NJ, NST>::kMinBlocks))
     rinv[x] = MODE == 1 && ok ? rstat[(size_t)B * L + o] : 0.f;
   }
 
-  // ldmatrix lane addresses: A rows lane%16, k halves lane/16; B (f1 rows
-  // = n) the four 8x8 matrices (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15,
-  // k 0-7), (n 8-15, k 8-15): b0, b1 of one n8 tile, then of the next.
-  const bf16* a_lane = As + (wr * 32 + (lane & 15)) * kLd + (lane >> 4) * 8;
-  const int b_lane =
-      (wc * 8 * NJ + (lane & 7) + ((lane >> 4) & 1) * 8) * kLd +
-      ((lane >> 3) & 1) * 8;
+  const bf16* al = a_lane(As, wr, lane);
+  const int bl = b_lane<NJ>(wc, lane);
 
   for (int t = 0; t < nt; ++t) {
     mma::cp_async_wait<NST - 2>();  // this thread's copies of tile t are in
@@ -465,29 +434,7 @@ __global__ void __launch_bounds__(kThreads, (Cfg<WR, NJ, NST>::kMinBlocks))
     mma::cp_async_commit();
 
     float acc[2][NJ][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[mt][j][i] = 0.f;
-    const bf16* bs = ring + (t % NST) * N * kLd + b_lane;
-#pragma unroll
-    for (int k = 0; k < kC; k += 16) {
-      uint32_t a[2][4];
-      mma::ldmatrix_x4(a[0], a_lane + k);
-      mma::ldmatrix_x4(a[1], a_lane + 16 * kLd + k);
-#pragma unroll
-      for (int p = 0; p < NJ / 2; ++p) {
-        uint32_t bq[4];
-        mma::ldmatrix_x4(bq, bs + p * 16 * kLd + k);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma::mma_bf16(acc[mt][2 * p], a[mt], bq[0], bq[1]);
-          mma::mma_bf16(acc[mt][2 * p + 1], a[mt], bq[2], bq[3]);
-        }
-      }
-    }
+    product<NJ>(acc, al, ring + (t % NST) * N * kLd + bl);
 
     // sim (MODE 0) or conf (MODE 1) in place, one expression an element.
     // The mask term (m0 m1 - 1) * 1e9 of 0/1 masks is the smaller of the

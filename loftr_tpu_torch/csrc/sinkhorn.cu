@@ -18,20 +18,37 @@
 // flagged rows and columns zeroed.
 //
 // What bounds it on the H100: operations (iters + 1 (+ 1) sim products of
-// 2*L*S*C flop against (L+S)*C input values).  Every pass recomputes 64x64
-// sim tiles (sim_tile.cuh: WMMA in bf16, FMAs in float); nothing of size
-// L x S reaches device memory.
+// 2*L*S*C flop against (L+S)*C input values).  Every pass recomputes its
+// sim tiles; nothing of size L x S reaches device memory.
 //
 // The TPU kernel holds a whole row slab, finishes u_new and uses it for the
 // column statistics in the same sequential grid step.  Here tiles run in
 // parallel and a row's u_new needs all S columns first, so an iteration is
-// two passes over the tiles: a row pass (per column-chunk partial max /
-// sumexp of sim + v) and a column pass (per row-tile partial max / sumexp
-// of sim + u_new).  Small kernels combine the partials in a fixed order
+// two passes over the tiles: a row pass (per-chunk partial max / sumexp of
+// sim + v per row) and a column pass (partial max / sumexp of sim + u_new
+// per column).  Small kernels combine the partials in a fixed order
 // together with the dustbin terms; the dustbin's own updates are one-block
 // reductions.  No float atomics: results are deterministic.  alpha and all
 // running scalars are read from device memory, so the host never waits.
+//
+// float features (the exactness check): 64x64 sim tiles from shared-memory
+// k-slabs (sim_tile.cuh); the column pass reduces each tile's columns
+// through shared memory into per-row-tile partials.
+//
+// bfloat16 features, C = 256 (namespace bf below), on kernel B's pattern
+// (sim_ring.cuh): 128 resident rows staged once by cp.async, 128-row tiles
+// of the other side through a 2-stage cp.async ring, mma.m16n8k16 with each
+// warp owning 32 x 64 accumulators, and every epilogue (scale, mask bias,
+// __expf, reductions) on the accumulators.  The column pass is the row pass
+// with the operands swapped (f1 resident, f0 streamed, bias u): sim^T is
+// the same function, its per-chunk partials [B, nch', S] need no
+// cross-thread column reduction, and their maxima are max_i(sim + u), so the
+// last column pass also gives the column flags.  The best pass forms conf
+// once an element for the row best and the per-row-tile column max.  Tile
+// shape and chunks: sinkhorn_plan in ops/kernels/sinkhorn.py and
+// tools/sinkhorn_chunk_sweep.py.
 
+#include "sim_ring.cuh"
 #include "sim_tile.cuh"
 
 namespace loftr {
@@ -363,9 +380,11 @@ __global__ void row_best_kernel(const float* __restrict__ pv,
 
 // Column max of conf over row tiles.  With flags: pf1 = alpha + u_bin >
 // max_i(sim + u), keep1 = !pf1.
+// conf partials pc [B, n, S]; logit partials pl [B, nl, S] (the float
+// path's best pass, or the bf16 path's last column pass).
 __global__ void col_best_kernel(const float* __restrict__ pc,
-                                const float* __restrict__ pl, int n, int S,
-                                int B, const float* __restrict__ alpha,
+                                const float* __restrict__ pl, int n, int nl,
+                                int S, int B, const float* __restrict__ alpha,
                                 const float* __restrict__ ubin, int flags,
                                 float* __restrict__ oc,
                                 unsigned char* __restrict__ pf1,
@@ -374,11 +393,10 @@ __global__ void col_best_kernel(const float* __restrict__ pc,
   if (idx >= B * S) return;
   const int b = idx / S, j = idx % S;
   float m = -1.f, cl = -INFINITY;
-  for (int t = 0; t < n; ++t) {
-    const size_t o = ((size_t)b * n + t) * S + j;
-    m = fmaxf(m, pc[o]);
-    if (flags) cl = fmaxf(cl, pl[o]);
-  }
+  for (int t = 0; t < n; ++t) m = fmaxf(m, pc[((size_t)b * n + t) * S + j]);
+  if (flags)
+    for (int t = 0; t < nl; ++t)
+      cl = fmaxf(cl, pl[((size_t)b * nl + t) * S + j]);
   oc[idx] = m;
   if (flags) {
     const bool f = alpha[0] + ubin[b] > cl;
@@ -426,8 +444,8 @@ int launch(const void* f0v, const void* f1v, const float* m0, const float* m1,
   row_best_kernel<<<gl, 256, 0, st>>>(row_pa, (const int*)row_pb, row_pc, nch,
                                       L, B, alpha, vbin, 1, best_val, best_j,
                                       pf0, keep0);
-  col_best_kernel<<<gs, 256, 0, st>>>(col_pa, col_pb, nrt, S, B, alpha, ubin,
-                                      1, colconf, pf1, keep1);
+  col_best_kernel<<<gs, 256, 0, st>>>(col_pa, col_pb, nrt, nrt, S, B, alpha,
+                                      ubin, 1, colconf, pf1, keep1);
   if (prefilter) {
     ot_tile_kernel<T, kBestFiltered><<<grid, kThreads, 0, st>>>(
         f0, f1, m0, m1, u, v, keep0, keep1, row_pa, row_pb, row_pc, col_pa,
@@ -435,16 +453,358 @@ int launch(const void* f0v, const void* f1v, const float* m0, const float* m1,
     row_best_kernel<<<gl, 256, 0, st>>>(row_pa, (const int*)row_pb, row_pc,
                                         nch, L, B, alpha, vbin, 0, best_val,
                                         best_j, pf0, keep0);
-    col_best_kernel<<<gs, 256, 0, st>>>(col_pa, col_pb, nrt, S, B, alpha,
+    col_best_kernel<<<gs, 256, 0, st>>>(col_pa, col_pb, nrt, nrt, S, B,
+                                        alpha, ubin, 0, colconf, pf1, keep1);
+  }
+  return (int)cudaGetLastError();
+}
+
+
+// ---- bfloat16, C = 256: mma.sync on a resident row tile ------------------
+
+namespace bf {
+
+using namespace ring;  // bf16, kC, kLd, stage_rows, better, product, ...
+
+constexpr int kLse = 0, kConf = 1, kConfFiltered = 2;  // pass modes
+
+// WR warps down the R = 32*WR resident rows, 8/WR across the N = 64*NJ/WR
+// streamed rows of a tile; NST ring stages.  red: a best pass's per-tile
+// column maxima [WR][N], and the end-of-pass exchange across the warps of
+// a row [R][WC][3].
+template <int WR, int NJ, int NST>
+struct Cfg {
+  static constexpr int kWC = 8 / WR;
+  static constexpr int kR = 32 * WR;
+  static constexpr int kN = 8 * NJ * kWC;
+  static constexpr int kRed = WR * kN > 3 * kR * kWC ? WR * kN : 3 * kR * kWC;
+  static constexpr size_t kSmem =
+      (size_t)(kR + NST * kN) * kLd * sizeof(bf16) + kRed * sizeof(float);
+  static constexpr int kMinBlocks = 2 * (kSmem + 1024) <= kSmemSM ? 2 : 1;
+};
+
+// One pass over the block's tile of resident rows x (f0 in the row and best
+// passes, f1 in the column pass; nx of them) and chunk of streamed rows y
+// (ny), with s = sim + by_y:
+//   kLse: per-chunk (max, sumexp) of s over the chunk -> pa, pb [B, nch,
+//         nx]; by = v (row pass) or u (column pass, sim^T).
+//   kConf: conf = exp(s + bx_x + log_ls) (bx = u, by = v): per-chunk (best
+//         conf, lowest argmax) -> pa, pb (int) and max of s -> pc [B, nch,
+//         nx]; per-row-tile column max of conf -> cpa [B, nrt, ny].
+//   kConfFiltered: the same over conf * kx_x * ky_y (keep0, keep1), no pc.
+// mx / my (0/1) may both be null (no masks).  Thread (warp, lane) holds
+// rows wr*32 + 16*mt + g + 8*h and columns wc*8*NJ + 8*j + 2*q + e of each
+// tile (g = lane/4, q = lane%4) as acc[mt][j][2*h + e].
+template <int WR, int NJ, int NST, int MODE>
+__global__ void __launch_bounds__(kThreads, (Cfg<WR, NJ, NST>::kMinBlocks))
+    sinkhorn_bf16(const bf16* __restrict__ fx, const bf16* __restrict__ fy,
+                  const float* __restrict__ mx, const float* __restrict__ my,
+                  const float* __restrict__ bx, const float* __restrict__ by,
+                  const float* __restrict__ kx, const float* __restrict__ ky,
+                  float* __restrict__ pa, float* __restrict__ pb,
+                  float* __restrict__ pc, float* __restrict__ cpa, int nx,
+                  int ny, int chunk_tiles, float scale, float log_ls) {
+  using K = Cfg<WR, NJ, NST>;
+  constexpr int WC = K::kWC, R = K::kR, N = K::kN;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* As = (bf16*)smem_raw;                 // [R][kLd] resident rows
+  bf16* stages = As + R * kLd;                // NST x [N][kLd] streamed rows
+  float* red = (float*)(stages + NST * N * kLd);  // cross-warp partials
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int wr = warp / WC, wc = warp % WC;
+  const int rt = blockIdx.x, chunk = blockIdx.y, b = blockIdx.z;
+  const int nrt = gridDim.x, nch = gridDim.y;
+  const int i0 = rt * R;
+  const int t0 = chunk * chunk_tiles;
+  const int nt = min(chunk_tiles, (ny + N - 1) / N - t0);
+  const bf16* fyb = fy + (size_t)b * ny * kC;
+
+  stage_rows<R>(As, fx + ((size_t)b * nx + i0) * kC, min(R, nx - i0));
+#pragma unroll
+  for (int s = 0; s < NST - 1; ++s) {
+    if (s < nt) {
+      const int j0 = (t0 + s) * N;
+      stage_rows<N>(stages + s * N * kLd, fyb + (size_t)j0 * kC,
+                    min(N, ny - j0));
+    }
+    mma::cp_async_commit();
+  }
+
+  // per row x = 2*mt + h: its index, mask bias, bx + log_ls, keep, and the
+  // carried statistics
+  int rows[4], rj[4];
+  float rbias[4], rterm[4], rkeep[4], ra[4], rb[4], rl[4];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    rows[x] = i0 + wr * 32 + (x >> 1) * 16 + g + 8 * (x & 1);
+    const bool ok = rows[x] < nx;
+    const size_t o = (size_t)b * nx + rows[x];
+    rbias[x] = !ok ? -INFINITY : mx != nullptr ? (mx[o] - 1.f) * kBig : 0.f;
+    rterm[x] = MODE != kLse && ok ? bx[o] + log_ls : 0.f;
+    rkeep[x] = MODE == kConfFiltered && ok ? kx[o] : 1.f;
+    ra[x] = MODE == kLse ? -INFINITY : -1.f;  // running max | best conf
+    rb[x] = 0.f;                              // running sumexp
+    rj[x] = 0;                                // best column
+    rl[x] = -INFINITY;                        // max of sim + by
+  }
+
+  const bf16* al = a_lane(As, wr, lane);
+  const int bl = b_lane<NJ>(wc, lane);
+
+  for (int t = 0; t < nt; ++t) {
+    mma::cp_async_wait<NST - 2>();  // this thread's copies of tile t are in
+    __syncthreads();                // everyone's; tile t-1 and red are free
+    const int nx_t = t + NST - 1;
+    if (nx_t < nt) {
+      const int jn = (t0 + nx_t) * N;
+      stage_rows<N>(stages + (nx_t % NST) * N * kLd, fyb + (size_t)jn * kC,
+                    min(N, ny - jn));
+    }
+    mma::cp_async_commit();
+
+    float acc[2][NJ][4];
+    product<NJ>(acc, al, stages + (t % NST) * N * kLd + bl);
+
+    // s = sim + by (kLse) or conf (kConf*) in place, one expression an
+    // element.  The mask term (m0 m1 - 1) * 1e9 of 0/1 masks is the smaller
+    // of the row's and the column's (m - 1) * 1e9; cells outside [nx) x
+    // [ny) take a -inf bias, so s is -inf and conf 0, which never win a
+    // reduction over a valid cell of lower index.  Exponentials by the SFU
+    // (ex2.approx, __expf).
+    const int j0 = (t0 + t) * N;
+    const int cw = wc * 8 * NJ + 2 * q;  // + 8*j + e: column in the tile
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = j0 + cw + 8 * j + e;
+        const bool cok = c < ny;
+        const size_t o = (size_t)b * ny + c;
+        const float cbias =
+            !cok ? -INFINITY : my != nullptr ? (my[o] - 1.f) * kBig : 0.f;
+        const float cv = cok ? by[o] : 0.f;
+        const float ck = MODE == kConfFiltered && cok ? ky[o] : 1.f;
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          float& v = acc[x >> 1][j][2 * (x & 1) + e];
+          const float sv = fmaf(v, scale, fminf(rbias[x], cbias)) + cv;
+          if (MODE == kLse) {
+            v = sv;
+          } else {
+            if (MODE == kConf) rl[x] = fmaxf(rl[x], sv);
+            v = __expf(sv + rterm[x]);
+            if (MODE == kConfFiltered) v *= rkeep[x] * ck;
+          }
+        }
+      }
+
+    // rows: kLse online max / sumexp, each thread's sum relative to the
+    // quad's common max; kConf* best value, ascending columns, ties kept
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const int mt = x >> 1, hi = 2 * (x & 1);
+      if (MODE == kLse) {
+        float tmax = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+          tmax = fmaxf(tmax, fmaxf(acc[mt][j][hi], acc[mt][j][hi + 1]));
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+        const float nm = fmaxf(ra[x], tmax);
+        if (nm != -INFINITY) {
+          float ts = 0.f;
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+            ts += __expf(acc[mt][j][hi] - nm) +
+                  __expf(acc[mt][j][hi + 1] - nm);
+          rb[x] = rb[x] * __expf(ra[x] - nm) + ts;
+          ra[x] = nm;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (acc[mt][j][hi + e] > ra[x]) {
+              ra[x] = acc[mt][j][hi + e];
+              rj[x] = j0 + cw + 8 * j + e;
+            }
+      }
+    }
+
+    if (MODE != kLse) {
+      // column max of conf: the warp's 32 rows by shuffles across g, then
+      // the WR warps of the column through red[wr][col]
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float cm = fmaxf(fmaxf(acc[0][j][e], acc[0][j][2 + e]),
+                           fmaxf(acc[1][j][e], acc[1][j][2 + e]));
+          cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 4));
+          cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 8));
+          cm = fmaxf(cm, __shfl_xor_sync(0xffffffffu, cm, 16));
+          if (g == 0) red[wr * N + cw + 8 * j + e] = cm;
+        }
+      __syncthreads();
+      if (threadIdx.x < N && j0 + (int)threadIdx.x < ny) {
+        const int cl = threadIdx.x;
+        float m = red[cl];
+#pragma unroll
+        for (int w = 1; w < WR; ++w) m = fmaxf(m, red[w * N + cl]);
+        cpa[((size_t)b * nrt + rt) * ny + j0 + cl] = m;
+      }
+    }
+  }
+
+  // rows: the quad, then the WC warps of the row through red[row][wc]
+  __syncthreads();  // the last column combine has read red
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    float va = ra[x], vb = rb[x], vl = rl[x];
+    int vj = rj[x];
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      if (MODE == kLse) {
+        vb += __shfl_xor_sync(0xffffffffu, vb, o);
+      } else {
+        const float ov = __shfl_xor_sync(0xffffffffu, va, o);
+        const int oj = __shfl_xor_sync(0xffffffffu, vj, o);
+        if (better(ov, oj, va, vj)) {
+          va = ov;
+          vj = oj;
+        }
+        if (MODE == kConf)
+          vl = fmaxf(vl, __shfl_xor_sync(0xffffffffu, vl, o));
+      }
+    }
+    if (q == 0) {
+      float* p = red + ((rows[x] - i0) * WC + wc) * 3;
+      p[0] = va;
+      p[1] = MODE == kLse ? vb : __int_as_float(vj);
+      p[2] = vl;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < R && i0 + (int)threadIdx.x < nx) {
+    const int r = threadIdx.x;
+    const size_t o = ((size_t)b * nch + chunk) * nx + i0 + r;
+    const float* p = red + r * WC * 3;
+    if (MODE == kLse) {
+      float m = p[0];
+#pragma unroll
+      for (int w = 1; w < WC; ++w) m = fmaxf(m, p[3 * w]);
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < WC; ++w)
+        if (p[3 * w + 1] > 0.f) s += p[3 * w + 1] * expf(p[3 * w] - m);
+      pa[o] = m;
+      pb[o] = s;
+    } else {
+      float bv = p[0], l = p[2];
+      int bj = __float_as_int(p[1]);
+#pragma unroll
+      for (int w = 1; w < WC; ++w) {
+        if (better(p[3 * w], __float_as_int(p[3 * w + 1]), bv, bj)) {
+          bv = p[3 * w];
+          bj = __float_as_int(p[3 * w + 1]);
+        }
+        l = fmaxf(l, p[3 * w + 2]);
+      }
+      pa[o] = bv;
+      ((int*)pb)[o] = bj;
+      if (MODE == kConf) pc[o] = l;
+    }
+  }
+}
+
+template <int WR, int NJ, int NST, int MODE>
+void pass(dim3 grid, cudaStream_t st, const bf16* fx, const bf16* fy,
+          const float* mx, const float* my, const float* bx, const float* by,
+          const float* kx, const float* ky, float* pa, float* pb, float* pc,
+          float* cpa, int nx, int ny, int chunk_tiles, float scale,
+          float log_ls) {
+  using K = Cfg<WR, NJ, NST>;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      sinkhorn_bf16<WR, NJ, NST, MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::kSmem);
+  (void)attr;
+  sinkhorn_bf16<WR, NJ, NST, MODE><<<grid, kThreads, K::kSmem, st>>>(
+      fx, fy, mx, my, bx, by, kx, ky, pa, pb, pc, cpa, nx, ny, chunk_tiles,
+      scale, log_ls);
+}
+
+// Every pass and combine.  The row and best passes run on the L x S grid
+// (nrt row tiles of f0, nch chunks of ct_row f1 tiles), the column pass on
+// the S x L grid (nrtc row tiles of f1, nchc chunks of ct_col f0 tiles).
+// Launches: 6 an iteration, 3 for the best pass and its combines, 3 more
+// with prefilter (21 and 24 at 3 iterations); one column pass more at 0
+// iterations, for the column flags.
+template <int WR, int NJ, int NST>
+int launch(const bf16* f0, const bf16* f1, const float* m0, const float* m1,
+           const float* alpha, float* u, float* v, float* ubin, float* vbin,
+           float* pa, float* pb, float* pc, float* qa, float* qb, float* cpa,
+           float* keep0, float* keep1, float* best_val, int* best_j,
+           float* colconf, unsigned char* pf0, unsigned char* pf1, int B,
+           int L, int S, int ct_row, int ct_col, int iters, int prefilter,
+           float scale, cudaStream_t st) {
+  using K = Cfg<WR, NJ, NST>;
+  if (ct_row < 1 || ct_col < 1) return (int)cudaErrorInvalidValue;
+  const int nrt = (L + K::kR - 1) / K::kR;
+  const int nch = ((S + K::kN - 1) / K::kN + ct_row - 1) / ct_row;
+  const int nrtc = (S + K::kR - 1) / K::kR;
+  const int nchc = ((L + K::kN - 1) / K::kN + ct_col - 1) / ct_col;
+  const dim3 grid(nrt, nch, B), gridc(nrtc, nchc, B);
+  const int gl = (B * L + 255) / 256, gs = (B * S + 255) / 256;
+  const float log_ls = logf((float)(L + S));
+  const float norm = -log_ls;
+  const float log_mu_bin = logf((float)S) + norm;
+  const float log_nu_bin = logf((float)L) + norm;
+  const float* F = nullptr;
+  float* O = nullptr;
+  for (int it = 0; it < iters; ++it) {
+    bin_kernel<<<B, kThreads, 0, st>>>(v, S, vbin, alpha, log_mu_bin, ubin);
+    pass<WR, NJ, NST, kLse>(grid, st, f0, f1, m0, m1, F, v, F, F, pa, pb, O,
+                            O, L, S, ct_row, scale, log_ls);
+    u_combine_kernel<<<gl, 256, 0, st>>>(pa, pb, nch, L, B, alpha, vbin, norm,
+                                         u);
+    pass<WR, NJ, NST, kLse>(gridc, st, f1, f0, m1, m0, F, u, F, F, qa, qb, O,
+                            O, S, L, ct_col, scale, log_ls);
+    v_combine_kernel<<<gs, 256, 0, st>>>(qa, qb, nchc, S, B, alpha, ubin,
+                                         norm, v);
+    bin_kernel<<<B, kThreads, 0, st>>>(u, L, ubin, alpha, log_nu_bin, vbin);
+  }
+  if (iters == 0)  // the column flags read max_i(sim + u) from qa
+    pass<WR, NJ, NST, kLse>(gridc, st, f1, f0, m1, m0, F, u, F, F, qa, qb, O,
+                            O, S, L, ct_col, scale, log_ls);
+  pass<WR, NJ, NST, kConf>(grid, st, f0, f1, m0, m1, u, v, F, F, pa, pb, pc,
+                           cpa, L, S, ct_row, scale, log_ls);
+  row_best_kernel<<<gl, 256, 0, st>>>(pa, (const int*)pb, pc, nch, L, B,
+                                      alpha, vbin, 1, best_val, best_j, pf0,
+                                      keep0);
+  col_best_kernel<<<gs, 256, 0, st>>>(cpa, qa, nrt, nchc, S, B, alpha, ubin,
+                                      1, colconf, pf1, keep1);
+  if (prefilter) {
+    pass<WR, NJ, NST, kConfFiltered>(grid, st, f0, f1, m0, m1, u, v, keep0,
+                                     keep1, pa, pb, O, cpa, L, S, ct_row,
+                                     scale, log_ls);
+    row_best_kernel<<<gl, 256, 0, st>>>(pa, (const int*)pb, pc, nch, L, B,
+                                        alpha, vbin, 0, best_val, best_j, pf0,
+                                        keep0);
+    col_best_kernel<<<gs, 256, 0, st>>>(cpa, qa, nrt, nchc, S, B, alpha,
                                         ubin, 0, colconf, pf1, keep1);
   }
   return (int)cudaGetLastError();
 }
 
+}  // namespace bf
+
 }  // namespace
 }  // namespace loftr
 
-// f0 [B, L, C], f1 [B, S, C] (T); m0 [B, L], m1 [B, S] float 0/1; alpha [1]
+// float features (dtype 0; bfloat16 goes to loftr_sinkhorn_bf16).
+// f0 [B, L, C], f1 [B, S, C]; m0 [B, L], m1 [B, S] float 0/1; alpha [1]
 // float (bin_score).  State, zero on entry: u [B, L], v [B, S], ubin, vbin
 // [B].  Scratch (float): row_pa, row_pb, row_pc [B, nch, L]; col_pa, col_pb
 // [B, nrt, S]; keep0 [B, L], keep1 [B, S]; nrt = ceil(L/64), nch =
@@ -458,11 +818,42 @@ extern "C" int loftr_sinkhorn(
     void* pf1, int B, int L, int S, int C, int chunk_tiles, int iters,
     int prefilter, float scale, int dtype, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  auto fn = dtype == 1 ? loftr::launch<__nv_bfloat16> : loftr::launch<float>;
-  return fn(f0, f1, (const float*)m0, (const float*)m1, (const float*)alpha,
-            (float*)u, (float*)v, (float*)ubin, (float*)vbin, (float*)row_pa,
-            (float*)row_pb, (float*)row_pc, (float*)col_pa, (float*)col_pb,
-            (float*)keep0, (float*)keep1, (float*)best_val, (int*)best_j,
-            (float*)colconf, (unsigned char*)pf0, (unsigned char*)pf1, B, L,
-            S, C, chunk_tiles, iters, prefilter, scale, st);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;  // bf16: entry below
+  return loftr::launch<float>(
+      f0, f1, (const float*)m0, (const float*)m1, (const float*)alpha,
+      (float*)u, (float*)v, (float*)ubin, (float*)vbin, (float*)row_pa,
+      (float*)row_pb, (float*)row_pc, (float*)col_pa, (float*)col_pb,
+      (float*)keep0, (float*)keep1, (float*)best_val, (int*)best_j,
+      (float*)colconf, (unsigned char*)pf0, (unsigned char*)pf1, B, L, S, C,
+      chunk_tiles, iters, prefilter, scale, st);
+}
+
+// bfloat16, C = 256: f0 [B, L, 256], f1 [B, S, 256], 16-byte aligned; m0
+// [B, L], m1 [B, S] float 0/1, or both null (no masks); alpha [1] float.
+// Tiles of 128 resident x 128 streamed rows (bf16_plan's default shape);
+// ct_row / ct_col: streamed tiles a block on the L x S grid (row and best
+// passes) and the S x L grid (column pass), from sinkhorn_plan in
+// ops/kernels/sinkhorn.py.  State, zero on entry: u [B, L], v [B, S],
+// ubin, vbin [B].  Scratch (float): pa, pb, pc [B, nch, L]; qa, qb [B,
+// nchc, S]; cpa [B, nrt, S]; keep0 [B, L], keep1 [B, S]; nrt =
+// ceil(L/128), nch = ceil(ceil(S/128) / ct_row), nchc = ceil(ceil(L/128) /
+// ct_col).  Outputs as loftr_sinkhorn's.
+extern "C" int loftr_sinkhorn_bf16(
+    const void* f0, const void* f1, const void* m0, const void* m1,
+    const void* alpha, void* u, void* v, void* ubin, void* vbin, void* pa,
+    void* pb, void* pc, void* qa, void* qb, void* cpa, void* keep0,
+    void* keep1, void* best_val, void* best_j, void* colconf, void* pf0,
+    void* pf1, int B, int L, int S, int C, int ct_row, int ct_col,
+    int iters, int prefilter, float scale, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (C != loftr::ring::kC || ((uintptr_t)f0 | (uintptr_t)f1) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  return loftr::bf::launch<4, 8, 2>(
+      (const loftr::ring::bf16*)f0, (const loftr::ring::bf16*)f1,
+      (const float*)m0, (const float*)m1, (const float*)alpha, (float*)u,
+      (float*)v, (float*)ubin, (float*)vbin, (float*)pa, (float*)pb,
+      (float*)pc, (float*)qa, (float*)qb, (float*)cpa, (float*)keep0,
+      (float*)keep1, (float*)best_val, (int*)best_j, (float*)colconf,
+      (unsigned char*)pf0, (unsigned char*)pf1, B, L, S, ct_row, ct_col,
+      iters, prefilter, scale, st);
 }

@@ -41,6 +41,7 @@ SIGNATURES = {
     "loftr_focal_fwd": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_I, _P],
     "loftr_focal_bwd": [_P] * 18 + [_I] * 5 + [_F] * 3 + [_I, _P],
     "loftr_sinkhorn": [_P] * 21 + [_I] * 7 + [_F, _I, _P],
+    "loftr_sinkhorn_bf16": [_P] * 22 + [_I] * 8 + [_F, _P],
     "loftr_window_attention": [_P] * 4 + [_I] * 4 + [_F, _I, _P],
     "loftr_upsample2x": [_P] * 10 + [_I] * 4 + [_P],
 }
@@ -162,6 +163,21 @@ def build_variant(name: str, source: str):
             raise RuntimeError("nvcc failed:\n" + r.stdout + r.stderr)
     with open(log_path) as f:
         return lib_path, f.read()
+
+
+def runs_plain(name: str, *tensors) -> bool:
+    """The device rule of every wrapper: True when all ``tensors`` lie on
+    the CPU (the wrapper then runs its plain version), False when all lie
+    on one CUDA device (it launches its kernel); ``ValueError`` for
+    anything else, such as a meta tensor or a CUDA tensor beside a CPU
+    one.  ``None`` (an optional input left out) is skipped."""
+    devices = {t.device for t in tensors if t is not None}
+    if all(d.type == "cpu" for d in devices):
+        return True
+    if len(devices) == 1 and next(iter(devices)).type == "cuda":
+        return False
+    raise ValueError(f"{name} takes CPU or CUDA tensors on one device, got "
+                     + ", ".join(sorted(str(d) for d in devices)))
 
 
 def check(err: int, name: str):

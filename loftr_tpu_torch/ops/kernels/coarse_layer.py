@@ -85,7 +85,8 @@ def fused_coarse_layer(x: torch.Tensor, src: torch.Tensor, w: EncoderWeights,
                        eps: float = 1e-6, packed=None) -> torch.Tensor:
     """One LoFTREncoderLayer application.  ``packed``: optional
     ``pack_weights(w, x.dtype)`` result, to skip repacking per call."""
-    if not x.is_cuda:
+    if _build.runs_plain("coarse-layer kernel", x, src, x_mask,
+                          src_mask):
         return coarse_layer_plain(x, src, w, x_mask, src_mask, nheads, eps)
     B, L, C = x.shape
     S = src.shape[1]

@@ -148,11 +148,9 @@ def fused_dual_softmax_match(feat0: torch.Tensor, feat1: torch.Tensor,
     1/(C*T) scaling is applied to the float dot here).  mask0 [B, L] /
     mask1 [B, S] optional.  Returns (best_val [B, L] float32, best_j [B, L]
     int32, colconf [B, S] float32)."""
-    if feat0.device.type == "cpu" and feat1.device.type == "cpu":
+    if _build.runs_plain("dual-softmax kernel", feat0, feat1, mask0,
+                          mask1):
         return dual_softmax_plain(feat0, feat1, temperature, mask0, mask1)
-    if not (feat0.is_cuda and feat1.device == feat0.device):
-        raise ValueError("dual-softmax kernel takes CPU or CUDA tensors on "
-                         "one device")
     B, L, C = feat0.shape
     S = feat1.shape[1]
     if feat1.shape[0] != B or feat1.shape[2] != C or feat1.dtype != feat0.dtype:

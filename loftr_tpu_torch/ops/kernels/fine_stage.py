@@ -139,7 +139,7 @@ def fused_fine_stage(win0: torch.Tensor, win1: torch.Tensor,
     or bfloat16.  ``packed``: optional (``pack_weights(layer0, dt)``,
     ``pack_weights(layer1, dt)``), to skip repacking per call.
     Returns [NB, 3] float32 (x, y, std)."""
-    if not win0.is_cuda:
+    if _build.runs_plain("fine-stage kernel", win0, win1):
         return fine_stage_plain(win0, win1, layer0, layer1, nheads, eps)
     nb, w2, c = win0.shape
     if win1.shape != win0.shape or win1.dtype != win0.dtype:

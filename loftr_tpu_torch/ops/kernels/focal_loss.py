@@ -186,7 +186,8 @@ def fused_focal_sums(feat0: torch.Tensor, feat1: torch.Tensor,
     integer and gt_valid [B, L]: the per-row ground truth.  mask0 [B, L] /
     mask1 [B, S] optional; the cell weight is mask0 * mask1.  The caller
     divides by its own (batch-global) counts."""
-    if not feat0.is_cuda:
+    if _build.runs_plain("focal-loss kernel", feat0, feat1, gt_j,
+                          gt_valid, mask0, mask1):
         return focal_sums_plain(feat0, feat1, gt_j, gt_valid, mask0, mask1,
                                 temperature, alpha, gamma)
     return _FocalSums.apply(feat0, feat1, gt_j, gt_valid, mask0, mask1,

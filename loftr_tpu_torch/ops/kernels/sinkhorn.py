@@ -14,14 +14,20 @@ flagged rows and columns zeroed.
 
 What bounds it on the H100: operations.  The least work is one sim product
 (2*L*S*C flop) per iteration, one for the final pass and one more with
-``prefilter``, against (L+S)*C input values.  The kernel recomputes 64x64
-sim tiles (tensor cores in bf16) in every pass instead of holding the
-coupling matrix; an iteration takes two passes, since a row's new ``u``
-needs all of its columns before any column statistic of ``sim + u`` can be
-formed.  Row statistics come out as per-column-chunk partials and column
-statistics as per-row-tile partials that small kernels combine in a fixed
-order; the dustbin's closed forms are block reductions.  ``bin_score`` and
-every running scalar stay on the device.
+``prefilter``, against (L+S)*C input values.  The kernel recomputes sim
+tiles in every pass instead of holding the coupling matrix; an iteration
+takes two passes, since a row's new ``u`` needs all of its columns before
+any column statistic of ``sim + u`` can be formed.  Statistics come out as
+per-chunk partials that small kernels combine in a fixed order; the
+dustbin's closed forms are block reductions.  ``bin_score`` and every
+running scalar stay on the device.
+
+bfloat16 features (C = 256) go to the ``mma.sync`` path on kernel B's
+pattern: 128 resident rows, 128-row tiles of the other side through a
+``cp.async`` ring, epilogues on the accumulators.  Its column pass is the
+row pass with the operands swapped, so :func:`sinkhorn_plan` gives a plan
+for each orientation.  float32 features go to the 64x64 tile kernel (the
+exactness check).
 
 ``fused_sinkhorn_match`` launches the kernel for CUDA tensors and runs
 :func:`sinkhorn_plain` (which materialises sim) for CPU tensors only.
@@ -36,8 +42,10 @@ from typing import Optional
 import torch
 
 from loftr_tpu_torch.ops.kernels import _build
-from loftr_tpu_torch.ops.kernels.dual_softmax import (NEG, TILE, _chunk_tiles,
-                                                      _mask_vectors)
+from loftr_tpu_torch.ops.kernels.dual_softmax import (BF16_C, NEG, TILE,
+                                                      _chunk_tiles,
+                                                      _mask_vectors, _sm_count,
+                                                      bf16_plan)
 
 
 def sinkhorn_plain(feat0: torch.Tensor, feat1: torch.Tensor,
@@ -98,6 +106,52 @@ def sinkhorn_plain(feat0: torch.Tensor, feat1: torch.Tensor,
     return out
 
 
+def sinkhorn_plan(B: int, L: int, S: int, sms: int = 132):
+    """Launch plans of the bfloat16 path, one an orientation:
+    ``bf16_plan(B, L, S)`` for the row and best passes (f0 resident, f1
+    streamed) and ``bf16_plan(B, S, L)`` for the column pass (f1 resident,
+    f0 streamed), each (rows, cols, chunk_tiles, nrt, nch).  The kernel is
+    built for the default 128 x 128 tile, so only the chunks reach it."""
+    return bf16_plan(B, L, S, sms), bf16_plan(B, S, L, sms)
+
+
+def _launch_bf16(feat0, feat1, alpha, iters, mask0, mask1, prefilter):
+    B, L, C = feat0.shape
+    S = feat1.shape[1]
+    if C != BF16_C:
+        raise ValueError(f"Sinkhorn kernel: bfloat16 takes C={BF16_C}, "
+                         f"got C={C}")
+    if feat0.data_ptr() % 16 or feat1.data_ptr() % 16:
+        raise ValueError("Sinkhorn kernel: bfloat16 features must be "
+                         "16-byte aligned")
+    dev = feat0.device
+    (_, _, ct, nrt, nch), (_, _, ctc, _, nchc) = sinkhorn_plan(
+        B, L, S, _sm_count(dev.index))
+    m0 = m1 = None
+    if mask0 is not None or mask1 is not None:
+        m0, m1 = _mask_vectors(B, L, S, mask0, mask1, dev)
+    # u, v, u_bin, v_bin (zeroed: the starting potentials); pa, pb, pc
+    # [B, nch, L]; qa, qb [B, nchc, S]; cpa [B, nrt, S]; keep0, keep1
+    sizes = (B * L, B * S, B, B, *(B * nch * L,) * 3, *(B * nchc * S,) * 2,
+             B * nrt * S, B * L, B * S)
+    buf = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    buf[:B * (L + S + 2)].zero_()
+    best_val = torch.empty((B, L), dtype=torch.float32, device=dev)
+    best_j = torch.empty((B, L), dtype=torch.int32, device=dev)
+    colconf = torch.empty((B, S), dtype=torch.float32, device=dev)
+    prefilter0 = torch.empty((B, L), dtype=torch.bool, device=dev)
+    prefilter1 = torch.empty((B, S), dtype=torch.bool, device=dev)
+    p = ctypes.c_void_p
+    ptrs = [p(None if t is None else t.data_ptr()) for t in (
+        feat0, feat1, m0, m1, alpha, *buf.split(sizes), best_val, best_j,
+        colconf, prefilter0, prefilter1)]
+    err = _build.library().loftr_sinkhorn_bf16(
+        *ptrs, B, L, S, C, ct, ctc, int(iters),
+        int(bool(prefilter)), 1.0 / C, p(_build.stream_ptr(feat0)))
+    _build.check(err, "loftr_sinkhorn_bf16")
+    return best_val, best_j, colconf, prefilter0, prefilter1
+
+
 def fused_sinkhorn_match(feat0: torch.Tensor, feat1: torch.Tensor,
                          bin_score: torch.Tensor, iters: int = 3,
                          mask0: Optional[torch.Tensor] = None,
@@ -111,7 +165,8 @@ def fused_sinkhorn_match(feat0: torch.Tensor, feat1: torch.Tensor,
     float32, prefilter0 [B, L] bool, prefilter1 [B, S] bool); with
     ``prefilter`` the first three are taken over the coupling with the
     flagged rows and columns zeroed."""
-    if not feat0.is_cuda:
+    if _build.runs_plain("Sinkhorn kernel", feat0, feat1, mask0,
+                          mask1):
         return sinkhorn_plain(feat0, feat1, bin_score, iters, mask0, mask1,
                               prefilter)
     B, L, C = feat0.shape
@@ -121,10 +176,15 @@ def fused_sinkhorn_match(feat0: torch.Tensor, feat1: torch.Tensor,
     if not (feat0.is_contiguous() and feat1.is_contiguous()):
         raise ValueError("Sinkhorn kernel takes contiguous features")
     code = _build.dtype_code(feat0)
-    lib = _build.library()
     dev = feat0.device
     alpha = torch.as_tensor(bin_score, device=dev).detach().to(
         torch.float32).reshape(1).contiguous()
+    if code == 1:
+        out = _launch_bf16(feat0, feat1, alpha, iters, mask0, mask1,
+                           prefilter)
+        fused_sinkhorn_match.launches += 1
+        return out
+    lib = _build.library()
     m0, m1 = _mask_vectors(B, L, S, mask0, mask1, dev)
     ct = _chunk_tiles(B, L, S)
     nrt = math.ceil(L / TILE)

@@ -42,7 +42,7 @@ def _tap_tables(n_in: int, dtype: torch.dtype, device: torch.device):
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:
     """x: [B, C, H, W] (NCHW), float32 or bfloat16 -> [B, C, 2H, 2W]."""
-    if not x.is_cuda:
+    if _build.runs_plain("upsample kernel", x):
         return upsample2x_plain(x)
     if x.dim() != 4:
         raise ValueError(f"upsample kernel takes [B, C, H, W], got {x.shape}")

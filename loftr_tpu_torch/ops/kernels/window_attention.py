@@ -53,7 +53,7 @@ def window_linear_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             nheads: int, eps: float = 1e-6) -> torch.Tensor:
     """q, k, v: [NB, W2, C] with C = nheads * dhead, float32 or bfloat16;
     every window attends only within itself.  Returns [NB, W2, C]."""
-    if not q.is_cuda:
+    if _build.runs_plain("window-attention kernel", q, k, v):
         return window_attention_plain(q, k, v, nheads, eps)
     nb, w2, c = q.shape
     if k.shape != q.shape or v.shape != q.shape or k.dtype != q.dtype \
