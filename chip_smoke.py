@@ -7,8 +7,8 @@ Phases, each of which must pass (any failure exits non-zero):
   1. environment: card name and power limit, versions, kernel build time
      (the kernels build from ``loftr_tpu_torch/csrc`` at first use), and
      ``ptxas`` registers; fails if a kernel of ``coarse_layer.cu`` or
-     ``fine_stage.cu``, or a bf16 pass of ``dual_softmax.cu`` or
-     ``sinkhorn.cu``, spills;
+     ``fine_stage.cu``, or a bf16 pass of ``dual_softmax.cu``,
+     ``sinkhorn.cu`` or ``focal_loss.cu``, spills;
   2. each CUDA kernel against its plain PyTorch version on the card, at the
      shapes of the indoor_ds 640x480 main paths, in float32 and bfloat16
      (the coarse layer also at ragged masked lengths, and timed at both of
@@ -17,8 +17,11 @@ Phases, each of which must pass (any failure exits non-zero):
      the first two with its pairs a block; the dual softmax at
      [1,4800,256] unmasked and masked, [8,4800,256] masked, a ragged masked
      pair L=4700 / S=4750 at B=2, L=S=7 and S=11025, timed at B=1 and B=8;
-     the focal-loss kernels: sums
-     and both gradients at B=2, the training batch; the hybrid fine stage:
+     the focal-loss kernels: sums and both gradients in both dtypes at
+     B=2, the training batch (unmasked, masked, without positives), at a
+     ragged masked pair L=4700 / S=4750, L=S=7, L=4800 / S=1200 and its
+     mirror, gamma 1.5, C=128 and a forward without a graph, timed at B=1
+     and B=2 (events and profiled device time); the hybrid fine stage:
      its gradients against autograd of the plain fine stage; the Sinkhorn
      kernel at B=2 and B=1, masked and unmasked, ``prefilter`` off and on,
      at a ragged masked pair L=4700 / S=4750 at B=2, L=S=7, and L=4800 /
@@ -36,8 +39,9 @@ Phases, each of which must pass (any failure exits non-zero):
      selection noise;
   6. the training main path in bfloat16: 8 ``Trainer.train_step`` calls on
      one batch at B=2 (and B=4), then 5 more timed one by one with CUDA
-     events, the stage split and peak memory; the last loss of the 8 must
-     be finite and below the first;
+     events, the stage split, peak memory and kernel D's profiled device
+     time a step; the last loss of the 8 must be finite and below the
+     first;
   7. the OT inference slice (``indoor_ot``) in float32, card against CPU;
   8. the OT main path in bfloat16 at 640x480: ``match_pair`` with
      ``indoor_ot`` at B=1 and the batched model call at B=8, timed as in
@@ -135,17 +139,53 @@ def device_ms(fn, iters=10, tries=3):
     return None
 
 
+def range_device_ms(fn, ops, iters=3, tries=3):
+    """Device time per call of ``fn`` of the kernels launched inside the
+    CPU ops named in ``ops`` (an autograd Function's forward shows as its
+    class name, its backward as the name + "Backward"), from the profiler,
+    by kernel, with the sum under "total"; None when the profiler links no
+    device time to them in any of ``tries`` windows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+
+    def walk(e, per):
+        for k in e.kernels:
+            base = k.name.replace("(anonymous namespace)::", "").split("(")[0]
+            base = base.replace("void ", "")
+            name = (base[len("loftr::"):] if base.startswith("loftr::")
+                    else base.split("<")[0].split("::")[-1])
+            per[name] = per.get(name, 0.0) + k.duration / iters / 1e3
+        for c in e.cpu_children:
+            walk(c, per)
+
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        per = {}
+        for e in prof.events():
+            if e.name in ops:
+                walk(e, per)
+        if per:
+            return {"total": sum(per.values()), **per}
+    return None
+
+
 def ptxas_summary():
     """From the loaded kernel library's ``ptxas -v`` build log: registers of
     each kernel of coarse_layer.cu and fine_stage.cu and of the bf16 passes
-    of dual_softmax.cu and sinkhorn.cu, and every kernel of any source that
-    spills."""
+    of dual_softmax.cu, sinkhorn.cu and focal_loss.cu, and every kernel of
+    any source that spills."""
     import re
     from loftr_tpu_torch.ops.kernels import _build
     path = os.path.join(_build.build_dir, "build.log")
     if not os.path.exists(path):
         return None
-    regs, fregs, bregs, eregs, spills = {}, {}, {}, {}, []
+    regs, fregs, bregs, eregs, dregs, spills = {}, {}, {}, {}, {}, []
     src = name = None
     for line in open(path):
         if line.startswith("== "):
@@ -176,6 +216,12 @@ def ptxas_summary():
             if k:
                 eregs["sinkhorn_bf16<%s>" % ", ".join(k.groups())] = \
                     int(m.group(1))
+        if m and name and src == "focal_loss.cu":
+            k = re.search(r"(focal_loss_bf16|focal_grad_bf16)ILi(\d+)ELi(\d+)"
+                          r"ELi(\d+)ELb(\d)ELb(\d)E", name)
+            if k:
+                dregs["%s<%s>" % (k.group(1), ", ".join(k.groups()[1:]))] = \
+                    int(m.group(1))
         if m and name and src == "fine_stage.cu":
             k = re.search(
                 r"(fine_stage_bf16|fine_stage_kernel)(?:ILi(\d+)E)?", name)
@@ -184,7 +230,8 @@ def ptxas_summary():
             fregs[short] = int(m.group(1))
     return {"coarse_layer_registers": regs, "fine_stage_registers": fregs,
             "dual_softmax_bf16_registers": bregs,
-            "sinkhorn_bf16_registers": eregs, "spilling_kernels": spills}
+            "sinkhorn_bf16_registers": eregs,
+            "focal_bf16_registers": dregs, "spilling_kernels": spills}
 
 
 def bound_ms(flops, nbytes, peak_flops):
@@ -816,26 +863,112 @@ def new_kernel_checks(dev, log, results):
         emit({"phase": 2, "kernel": k, "timing": results[k]}, log)
 
 
-def focal_case(rng, B, L, C, n_gt):
+def focal_case(rng, B, L, C, n_gt, S=None, n_alike=1500):
     """Features at a scale where the confidences of interest lie inside the
-    clamp (1e-6, 1 - 1e-6): n_gt[b] planted correspondences in pair b (sim
-    about 6 against N(0, 0.4) for the rest), and at least 1500 planted
-    look-alikes that are not ground truth, so that negatives with a live
+    clamp (1e-6, 1 - 1e-6): 2 n planted pairs in each image pair (sim about
+    6 at any C, against N(0, 0.4) for the rest at C = 256), n = n_alike or
+    fewer where L or S is small; the first n_gt[b] of them are the ground
+    truth of pair b, the others look-alikes, so that negatives with a live
     gradient exist (an unrelated cell's confidence, about 4e-8, is
-    clamped)."""
+    clamped).  f0 [B, L, C], f1 [B, S, C]."""
     import numpy as np
+    S = L if S is None else S
     n_gt = [n_gt] * B if isinstance(n_gt, int) else list(n_gt)
     f0 = (rng.randn(B, L, C) * 0.77).astype(np.float32)
-    f1 = (rng.randn(B, L, C) * 0.77).astype(np.float32)
+    f1 = (rng.randn(B, S, C) * 0.77).astype(np.float32)
     gt_j = np.zeros((B, L), np.int32)
     gt_valid = np.zeros((B, L), bool)
-    n = 1500
+    n = min(n_alike, L // 2, S // 2)
     for b in range(B):
-        ii, jj = rng.permutation(L)[:2 * n], rng.permutation(L)[:2 * n]
+        ii, jj = rng.permutation(L)[:2 * n], rng.permutation(S)[:2 * n]
         f1[b, jj] = f0[b, ii] + 0.1 * rng.randn(2 * n, C).astype(np.float32)
-        gt_j[b, ii[:n_gt[b]]] = jj[:n_gt[b]]
-        gt_valid[b, ii[:n_gt[b]]] = True
+        k = min(n_gt[b], n)
+        gt_j[b, ii[:k]] = jj[:k]
+        gt_valid[b, ii[:k]] = True
     return f0, f1, gt_j, gt_valid
+
+
+# kernel D's profiled kernels by name (chip_smoke.device_ms): its own, on
+# both paths, and the statistics pass it shares with kernel B's bf16 path
+FOCAL_KERNELS = ("focal_prescale", "bf::focal_loss_bf16", "bf::loss_combine",
+                 "bf::focal_grad_bf16", "bf::grad_combine",
+                 "focal_tile_kernel", "focal_grad_kernel",
+                 "scalar_combine_kernel", "sum_combine_kernel")
+STATS_KERNELS = ("bf::dual_softmax_bf16<4, 8, 2, 0>", "bf::stats_combine")
+# the profiler's names of kernel D's autograd Function, forward and backward
+FOCAL_OPS = ("_FocalSums", "_FocalSumsBackward")
+
+
+def focal_device_ms(dms):
+    """Kernel D's device ms from a ``device_ms`` dict of a call that runs
+    kernel D alone: its own kernels plus kernel B's pass 1 and
+    ``stats_combine``, which give its statistics."""
+    if not dms:
+        return None
+    return sum(v for k, v in dms.items() if k != "total"
+               and k.startswith(FOCAL_KERNELS + STATS_KERNELS))
+
+
+def focal_timing(dev, rng, B, fns):
+    """Events ms and profiled device ms, forward (no graph) and forward +
+    backward, of each wrapper in ``fns`` at bf16 [B, 4800, 256]."""
+    import torch
+    L, C = (H // 8) * (W // 8), 256
+    f0, f1, gt_j, gt_valid = focal_case(rng, B, L, C, 1500)
+    a = torch.from_numpy(f0).to(dev, torch.bfloat16).requires_grad_(True)
+    b = torch.from_numpy(f1).to(dev, torch.bfloat16).requires_grad_(True)
+    gj = torch.from_numpy(gt_j).to(dev)
+    gv = torch.from_numpy(gt_valid).to(dev)
+    out = {}
+    for which, fn, iters in fns:
+        def fwd():
+            with torch.no_grad():
+                return fn(a, b, gj, gv)
+
+        def fwd_bwd():
+            p, n = fn(a, b, gj, gv)
+            torch.autograd.grad(p.sum() + n.sum(), (a, b))
+        rec = {"ms_forward": cuda_ms(fwd, iters=iters),
+               "ms": cuda_ms(fwd_bwd, iters=iters)}
+        rec["ms_backward"] = rec["ms"] - rec["ms_forward"]
+        if which == "kernel":
+            df, dfb = device_ms(fwd), device_ms(fwd_bwd)
+            rec["device_ms_forward"] = focal_device_ms(df)
+            rec["device_ms"] = focal_device_ms(dfb)
+            if None not in (df, dfb):
+                rec["device_ms_backward"] = (rec["device_ms"]
+                                             - rec["device_ms_forward"])
+                rec["kernels_forward_backward"] = dfb
+            # the same, as the training step's figure is read: every kernel
+            # launched inside kernel D's forward and backward
+            rng_ms = range_device_ms(fwd_bwd, FOCAL_OPS)
+            rec["range_device_ms"] = rng_ms and rng_ms["total"]
+            rec["range_kernels"] = rng_ms
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fwd_bwd()
+        torch.cuda.synchronize()
+        rec["peak_mem_MiB"] = (torch.cuda.max_memory_allocated()
+                               - base) / 2 ** 20
+        out[which] = rec
+    return out
+
+
+def focal_bounds(B, L, S, C):
+    """Kernel D's bounds (ms) at [B, L, S, C], bf16: (bound: the 5
+    products of 2LSC the function needs -- the statistics' and the loss's
+    sim, the backward's one sim and its two gradient products; this
+    design's 6, each gradient grid forming its own sim; the earlier tile
+    kernels' count, 7 products, all bf16; the same count with the 2
+    gradient products at the float32 rate; bytes' time)."""
+    prod = 2.0 * B * L * S * C
+    t_bytes = B * (2 * (L + S) * C * 2) / PEAK_BYTES * 1e3
+    return (5 * prod / PEAK_BF16_FLOPS * 1e3,
+            6 * prod / PEAK_BF16_FLOPS * 1e3,
+            7 * prod / PEAK_BF16_FLOPS * 1e3,
+            (5 * prod / PEAK_BF16_FLOPS + 2 * prod / PEAK_F32_FLOPS) * 1e3,
+            t_bytes)
 
 
 def train_kernel_checks(dev, log, results):
@@ -852,12 +985,7 @@ def train_kernel_checks(dev, log, results):
 
     rng = np.random.RandomState(7)
     f32, bf16 = torch.float32, torch.bfloat16
-    C, L = 256, (H // 8) * (W // 8)
-    # the checks run at B=2, the training main path's batch, with another
-    # ground truth, mask and cotangent in each pair, so that every per-pair
-    # offset in the kernels is held against the plain version
-    B = 2
-    masks = (rng.rand(B, L) > 0.1, rng.rand(B, L) > 0.1)
+    L0 = (H // 8) * (W // 8)
     # tolerances.  Sums: the kernel adds 23 million float terms in another
     # order than torch.sum, and a term near conf = 1 carries log1p(-c)
     # with the float rounding of c: 2e-4 relative.  Gradients, float32:
@@ -869,33 +997,60 @@ def train_kernel_checks(dev, log, results):
     tol_sum = 2e-4
     tol_grad = {f32: (1e-3, 1e-3), bf16: (8e-3, 2e-3)}
     errD = {}
-    for name, n_gt, masked in (("plain", (1500, 900), False),
-                               ("masked", (1500, 900), True),
-                               ("no_positives", (0, 0), False),
-                               ("one_pair_without_positives", (0, 1500),
-                                False)):
-        f0, f1, gt_j, gt_valid = focal_case(rng, B, L, C, n_gt)
+    # (name, B, L, S, C, planted ground truth per pair, masked, gamma,
+    # gradient).  The first four at B=2, the training main path's batch,
+    # with another ground truth, mask and cotangent in each pair, so that
+    # every per-pair offset in the kernels is held against the plain
+    # version; then ragged and rectangular shapes (the two gradient grids'
+    # plans differ), gamma != 2, C = 128 (bf16 on the tile path, with the
+    # prescaled copies) and a forward without a graph.
+    cases = (("plain", 2, L0, L0, 256, (1500, 900), False, 2.0, True),
+             ("masked", 2, L0, L0, 256, (1500, 900), True, 2.0, True),
+             ("no_positives", 2, L0, L0, 256, (0, 0), False, 2.0, True),
+             ("one_pair_without_positives", 2, L0, L0, 256, (0, 1500), False,
+              2.0, True),
+             ("ragged_masked", 2, 4700, 4750, 256, (1500, 900), True, 2.0,
+              True),
+             ("tiny", 1, 7, 7, 256, (2,), False, 2.0, True),
+             ("L4800_S1200", 1, L0, 1200, 256, (600,), False, 2.0, True),
+             ("L1200_S4800", 1, 1200, L0, 256, (600,), False, 2.0, True),
+             ("gamma_1.5", 2, L0, L0, 256, (1500, 900), True, 1.5, True),
+             ("C128", 2, L0, L0, 128, (1500, 900), False, 2.0, True),
+             ("no_grad", 2, L0, L0, 256, (1500, 900), True, 2.0, False))
+    for name, B, L, S, C, n_gt, masked, gamma, grad in cases:
+        f0, f1, gt_j, gt_valid = focal_case(rng, B, L, C, n_gt, S)
         gj = torch.from_numpy(gt_j).to(dev)
         gv = torch.from_numpy(gt_valid).to(dev)
-        m0 = torch.from_numpy(masks[0]).to(dev) if masked else None
-        m1 = torch.from_numpy(masks[1]).to(dev) if masked else None
+        m0 = torch.from_numpy(rng.rand(B, L) > 0.1).to(dev) if masked \
+            else None
+        m1 = torch.from_numpy(rng.rand(B, S) > 0.1).to(dev) if masked \
+            else None
         count = gt_valid.sum(1)
         # cotangents, one pair of them per image pair: the loss's own
         # (1/n_pos, 1/n_neg), where the positives dominate, scaled apart
         # between the pairs; and the negatives alone
-        c_pos = torch.tensor([1.0, 0.5], device=dev) / torch.from_numpy(
+        sc = torch.arange(1, B + 1, dtype=torch.float32, device=dev)
+        c_pos = (1.5 - 0.5 * sc) / torch.from_numpy(
             np.maximum(count, 1)).to(dev)
-        c_neg = torch.tensor([1.0, 2.0], device=dev) / torch.from_numpy(
-            L * L - count).to(dev)
-        c_neg_only = torch.tensor([1.0, 3.0], device=dev)
+        c_neg = sc / torch.from_numpy(L * S - count).to(dev)
+        c_neg_only = 2.0 * sc - 1.0
         has_pos = torch.from_numpy(count > 0).to(dev)
         for dt in (f32, bf16):
             out = {}
             for which, fn in (("kernel", KD.fused_focal_sums),
                               ("plain", KD.focal_sums_plain)):
-                a = torch.from_numpy(f0).to(dev, dt).requires_grad_(True)
-                b = torch.from_numpy(f1).to(dev, dt).requires_grad_(True)
-                p, n = fn(a, b, gj, gv, m0, m1, 0.1, 0.25, 2.0)
+                a = torch.from_numpy(f0).to(dev, dt).requires_grad_(grad)
+                b = torch.from_numpy(f1).to(dev, dt).requires_grad_(grad)
+                n0 = KD.fused_focal_sums.launches
+                with torch.set_grad_enabled(grad):
+                    p, n = fn(a, b, gj, gv, m0, m1, 0.1, 0.25, gamma)
+                if which == "kernel":
+                    check(KD.fused_focal_sums.launches == n0 + 1
+                          and p.requires_grad == grad,
+                          f"focal_loss {name}: not one kernel call")
+                if not grad:
+                    out[which] = (p, n, None, None)
+                    continue
                 g_loss = torch.autograd.grad(
                     (p * c_pos).sum() + (n * c_neg).sum(), (a, b),
                     retain_graph=True)
@@ -926,81 +1081,75 @@ def train_kernel_checks(dev, log, results):
                 else 0.0
             ok = (rel(kn, pn) <= tol_sum and pos_err <= tol_sum
                   and bool((kp[~has_pos] == 0).all())
-                  and bool((pp[~has_pos] == 0).all())
-                  and grad_ok(ka, pa) and grad_ok(kb, pb)
-                  and bool(torch.isfinite(ka.float()).all())
-                  and bool(torch.isfinite(kb.float()).all()))
-            lo, hi = slice(0, B), slice(B, 2 * B)
+                  and bool((pp[~has_pos] == 0).all()))
             rec = {"phase": 2, "kernel": "focal_loss", "case": name,
-                   "batch": B, "n_gt": list(n_gt),
+                   "batch": B, "L": L, "S": S, "C": C, "gamma": gamma,
+                   "masked": masked, "gradient": grad, "n_gt": list(n_gt),
                    "dtype": str(dt)[6:], "pos": kp.tolist(),
                    "neg": kn.tolist(), "pos_rel_err": pos_err,
-                   "neg_rel_err": rel(kn, pn),
-                   "dfeat0_max_abs_err": gerr(ka, pa, lo),
-                   "dfeat0_max_abs": float(pa.float()[lo].abs().max()),
-                   "dfeat1_max_abs_err": gerr(kb, pb, lo),
-                   "dfeat1_max_abs": float(pb.float()[lo].abs().max()),
-                   "neg_only_dfeat0_max_abs_err": gerr(ka, pa, hi),
-                   "neg_only_dfeat0_max_abs": float(
-                       pa.float()[hi].abs().max()),
-                   "neg_only_dfeat1_max_abs_err": gerr(kb, pb, hi),
-                   "neg_only_dfeat1_max_abs": float(
-                       pb.float()[hi].abs().max()),
-                   "sum_rtol": tol_sum, "grad_rtol": rtol,
-                   "grad_tol_of_max": ftol, "ok": ok}
+                   "neg_rel_err": rel(kn, pn), "sum_rtol": tol_sum}
+            if grad:
+                ok = (ok and grad_ok(ka, pa) and grad_ok(kb, pb)
+                      and bool(torch.isfinite(ka.float()).all())
+                      and bool(torch.isfinite(kb.float()).all()))
+                lo, hi = slice(0, B), slice(B, 2 * B)
+                rec.update({
+                    "dfeat0_max_abs_err": gerr(ka, pa, lo),
+                    "dfeat0_max_abs": float(pa.float()[lo].abs().max()),
+                    "dfeat1_max_abs_err": gerr(kb, pb, lo),
+                    "dfeat1_max_abs": float(pb.float()[lo].abs().max()),
+                    "neg_only_dfeat0_max_abs_err": gerr(ka, pa, hi),
+                    "neg_only_dfeat0_max_abs": float(
+                        pa.float()[hi].abs().max()),
+                    "neg_only_dfeat1_max_abs_err": gerr(kb, pb, hi),
+                    "neg_only_dfeat1_max_abs": float(
+                        pb.float()[hi].abs().max()),
+                    "grad_rtol": rtol, "grad_tol_of_max": ftol})
+                errD[(name, dt)] = max(rec["dfeat0_max_abs_err"],
+                                       rec["dfeat1_max_abs_err"])
+            rec["ok"] = ok
             emit(rec, log)
             check(ok, f"focal_loss {name} {dt} disagrees: {rec}")
-            errD[(name, dt)] = max(rec["dfeat0_max_abs_err"],
-                                   rec["dfeat1_max_abs_err"])
             del out, ka, kb, pa, pb
-    # timing and peak memory, bf16, B=1 (one pair)
-    f0, f1, gt_j, gt_valid = focal_case(rng, 1, L, C, 1500)
-    a = torch.from_numpy(f0).to(dev, bf16).requires_grad_(True)
-    b = torch.from_numpy(f1).to(dev, bf16).requires_grad_(True)
-    gj = torch.from_numpy(gt_j).to(dev)
-    gv = torch.from_numpy(gt_valid).to(dev)
 
-    def fwd(fn):
-        with torch.no_grad():
-            return fn(a, b, gj, gv)
-
-    def fwd_bwd(fn):
-        p, n = fn(a, b, gj, gv)
-        torch.autograd.grad(p.sum() + n.sum(), (a, b))
-
-    times, mem = {}, {}
-    for which, fn in (("kernel", KD.fused_focal_sums),
-                      ("plain", KD.focal_sums_plain)):
-        it = 10 if which == "kernel" else 5
-        times[which] = (cuda_ms(lambda: fwd(fn), iters=it),
-                        cuda_ms(lambda: fwd_bwd(fn), iters=it))
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        fwd_bwd(fn)
-        torch.cuda.synchronize()
-        mem[which] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-    sim = 2 * L * L * C
-    # forward: two passes of sim tiles.  backward: three more (B1 and the
-    # two B2 grids), on the tensor cores in bf16, plus the two float32
-    # gradient products.  Bytes: features in twice, gradients out.
-    t_ops = (5 * sim / PEAK_BF16_FLOPS + 2 * sim / PEAK_F32_FLOPS) * 1e3
-    t_bytes = (2 * 2 * L * C * 2 + 2 * L * C * 2) / PEAK_BYTES * 1e3
+    # timing (events and profiled device time) and peak memory, bf16, at
+    # B=1 (one pair) and B=2 (the training batch)
+    t = {B: focal_timing(dev, rng, B, (
+        ("kernel", KD.fused_focal_sums, 10),
+        ("plain", KD.focal_sums_plain, 5))) for B in (1, 2)}
+    k1, p1, k2 = t[1]["kernel"], t[1]["plain"], t[2]["kernel"]
+    (bound, two_grid, all_bf16, f32_products,
+     t_bytes) = focal_bounds(1, L0, L0, 256)
+    bound2, _, _, _, t_bytes2 = focal_bounds(2, L0, L0, 256)
     results["focal_loss"] = dict(
-        max_abs_err=errD[("plain", bf16)], ms=times["kernel"][1],
-        plain_ms=times["plain"][1], bound_ms=max(t_ops, t_bytes),
-        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        max_abs_err=errD[("plain", bf16)], ms=k1["ms"],
+        plain_ms=p1["ms"], bound_ms=max(bound, t_bytes),
+        bound_by="operations" if bound >= t_bytes else "bytes",
         library_ms=None,
-        bound_unit="sim tiles (5 x 2LSC) at the bf16 tensor-core rate, "
-                   "gradient products (2 x 2LSC) at the float32 rate",
-        bound_ms_all_bf16=7 * sim / PEAK_BF16_FLOPS * 1e3,
-        ms_forward=times["kernel"][0],
-        ms_backward=times["kernel"][1] - times["kernel"][0],
-        plain_ms_forward=times["plain"][0],
-        bound_ms_forward=2 * sim / PEAK_BF16_FLOPS * 1e3,
-        peak_mem_MiB=mem["kernel"], plain_peak_mem_MiB=mem["plain"],
-        shape="f0=f1 [1,4800,256] bf16, forward + backward "
-              "(checked at [2,4800,256])")
+        bound_unit="5 products of 2LSC (statistics and loss sim; the "
+                   "backward's sim, dsim @ f1 and dsim^T @ f0) at the bf16 "
+                   "tensor-core rate",
+        bound_ms_two_grid_design=max(two_grid, t_bytes),
+        bound_ms_all_bf16=all_bf16, bound_ms_f32_products=f32_products,
+        bound_ms_forward=max(2 * bound / 5, t_bytes),
+        ms_forward=k1["ms_forward"], ms_backward=k1["ms_backward"],
+        device_ms=k1.get("device_ms"),
+        device_ms_forward=k1.get("device_ms_forward"),
+        device_ms_backward=k1.get("device_ms_backward"),
+        kernels_forward_backward=k1.get("kernels_forward_backward"),
+        range_device_ms_B2=k2.get("range_device_ms"),
+        range_kernels_B2=k2.get("range_kernels"),
+        plain_ms_forward=p1["ms_forward"],
+        ms_B2=k2["ms"], ms_forward_B2=k2["ms_forward"],
+        device_ms_B2=k2.get("device_ms"),
+        device_ms_forward_B2=k2.get("device_ms_forward"),
+        device_ms_backward_B2=k2.get("device_ms_backward"),
+        plain_ms_B2=t[2]["plain"]["ms"],
+        bound_ms_B2=max(bound2, t_bytes2),
+        peak_mem_MiB=k1["peak_mem_MiB"], plain_peak_mem_MiB=p1["peak_mem_MiB"],
+        peak_mem_MiB_B2=k2["peak_mem_MiB"],
+        shape="f0=f1 [1,4800,256] bf16, forward + backward; _B2 at "
+              "[2,4800,256] (checked at 11 shapes)")
     emit({"phase": 2, "kernel": "focal_loss",
           "timing": results["focal_loss"]}, log)
 
@@ -1427,6 +1576,17 @@ def train_bf16(dev, log, steps=8):
         per_step = [tev[i].elapsed_time(tev[i + 1]) for i in range(timed)]
         step_ms = sum(per_step) / timed
 
+        # the step's device time, and kernel D's: the kernels the profiler
+        # links to its forward and backward ops (kernel B's matcher runs
+        # the same statistics kernels in the step)
+        holder = [state]
+
+        def one_step():
+            holder[0], _ = trainer.train_step(holder[0], batch)
+        dms = device_ms(one_step, iters=3)
+        focal = range_device_ms(one_step, FOCAL_OPS)
+        state = holder[0]
+
         # the per-stage breakdown: the step's stages written out one by
         # one with an event between them.  It is not the entry point: it
         # leaves out train_step's batch.to, the zero fill of unused
@@ -1470,7 +1630,10 @@ def train_bf16(dev, log, steps=8):
                "step_minus_stages_ms": step_ms - sum(split),
                "supervision_ms": split[0], "forward_ms": split[1],
                "loss_ms": split[2], "backward_ms": split[3],
-               "optimizer_ms": split[4], "peak_mem_MiB": peak}
+               "optimizer_ms": split[4], "peak_mem_MiB": peak,
+               "device_ms_per_step": dms and dms["total"],
+               "focal_device_ms": focal and focal["total"],
+               "focal_kernels": focal}
         emit(rec, log)
         del state, trainer, batch, out, loss, grads
         torch.cuda.empty_cache()
@@ -1668,15 +1831,17 @@ def main(argv=None):
               "ptxas": ptxas,
               "tf32": "cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False"},
              log)
-        # kernels A's and C's register tiles, and those of kernels B's and
-        # E's bf16 passes, are sized to fit without spilling
+        # kernels A's and C's register tiles, and those of kernels B's, D's
+        # and E's bf16 passes, are sized to fit without spilling
         for src_name in ("coarse_layer.cu", "fine_stage.cu"):
             check(ptxas is None or not any(
                 k.startswith(src_name + ":")
                 for k in ptxas["spilling_kernels"]),
                 f"a kernel of {src_name} spills: {ptxas}")
         for src_name, kern in (("dual_softmax.cu", "dual_softmax_bf16"),
-                               ("sinkhorn.cu", "sinkhorn_bf16")):
+                               ("sinkhorn.cu", "sinkhorn_bf16"),
+                               ("focal_loss.cu", "focal_loss_bf16"),
+                               ("focal_loss.cu", "focal_grad_bf16")):
             check(ptxas is None or not any(
                 k.startswith(src_name + ":") and kern in k
                 for k in ptxas["spilling_kernels"]),
@@ -1748,7 +1913,14 @@ def main(argv=None):
                         "variant_8192", "ms_B8", "device_ms_B8",
                         "plain_ms_B8", "bound_ms_B8", "device_ms_prefilter",
                         "bound_ms_prefilter", "ms_B8_prefilter",
-                        "device_ms_B8_prefilter")
+                        "device_ms_B8_prefilter", "device_ms_forward",
+                        "device_ms_backward", "bound_ms_two_grid_design",
+                        "bound_ms_all_bf16",
+                        "bound_ms_f32_products", "bound_ms_forward",
+                        "plain_ms_forward", "ms_B2", "ms_forward_B2",
+                        "device_ms_B2", "device_ms_forward_B2",
+                        "device_ms_backward_B2", "plain_ms_B2",
+                        "bound_ms_B2", "peak_mem_MiB_B2")
             kernels = []
             for name, r in results.items():
                 kernels.append({

@@ -22,9 +22,11 @@
 // softmax statistics, max with the lowest index on ties for the row best).
 // No float atomics, so results are deterministic.
 //
-// float features (the exactness check, and the focal-loss statistics entry
-// loftr_dual_softmax_stats in both types): 64x64 sim tiles from
-// shared-memory k-slabs (sim_tile.cuh), rebuilt at every k-step.
+// float features (the exactness check, and the focal loss's tile-path
+// statistics entry loftr_dual_softmax_stats in both types): 64x64 sim tiles
+// from shared-memory k-slabs (sim_tile.cuh), rebuilt at every k-step.  The
+// focal loss's bf16 path at C = 256 takes pass 1 below alone
+// (loftr_dual_softmax_bf16_stats).
 //
 // bfloat16 features, C = 256 (dual_softmax_bf16 below): what held the tile
 // kernel at 3% of the bound was that every 64x64 tile reloaded both operands
@@ -662,6 +664,33 @@ __global__ void best_combine(const float* __restrict__ row_pa,
   colconf[i] = m;
 }
 
+// Pass 1 and its combine: rstat, cstat (alone, the focal loss's statistics,
+// focal_loss.cu).  Scratch as launch's.
+template <int WR, int NJ, int NST>
+int launch_stats(const void* f0, const void* f1, const void* m0,
+                 const void* m1, void* row_pa, void* row_pb, void* col_pa,
+                 void* col_pb, void* rstat, void* cstat, int B, int L, int S,
+                 int chunk_tiles, float scale, cudaStream_t st) {
+  using K = Cfg<WR, NJ, NST>;
+  static const cudaError_t a0 = cudaFuncSetAttribute(
+      dual_softmax_bf16<WR, NJ, NST, 0>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::kSmem);
+  (void)a0;
+  if (chunk_tiles < 1) return (int)cudaErrorInvalidValue;
+  const int nrt = (L + K::kR - 1) / K::kR;
+  const int nct = (S + K::kN - 1) / K::kN;
+  const int nch = (nct + chunk_tiles - 1) / chunk_tiles;
+  float *RA = (float*)row_pa, *RB = (float*)row_pb, *CA = (float*)col_pa,
+        *CB = (float*)col_pb;
+  dual_softmax_bf16<WR, NJ, NST, 0><<<dim3(nrt, nch, B), kThreads, K::kSmem,
+                                      st>>>(
+      (const bf16*)f0, (const bf16*)f1, (const float*)m0, (const float*)m1,
+      nullptr, nullptr, RA, RB, CA, CB, B, L, S, chunk_tiles, scale);
+  stats_combine<<<(B * (L + S) + 63) / 64, 64, 0, st>>>(
+      RA, RB, CA, CB, nch, nrt, B, L, S, (float*)rstat, (float*)cstat);
+  return (int)cudaGetLastError();
+}
+
 // Both passes and their combines: 4 launches.  Scratch: row_pa, row_pb
 // [B, nch, L], col_pa, col_pb [B, nrt, S], rstat [2, B, L], cstat [2, B, S]
 // (float), nrt = ceil(L/R), nch = ceil(ceil(S/N) / chunk_tiles).
@@ -672,15 +701,14 @@ int launch(const void* f0, const void* f1, const void* m0, const void* m1,
            void* colconf, int B, int L, int S, int chunk_tiles, float scale,
            cudaStream_t st) {
   using K = Cfg<WR, NJ, NST>;
-  static const cudaError_t a0 = cudaFuncSetAttribute(
-      dual_softmax_bf16<WR, NJ, NST, 0>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::kSmem);
   static const cudaError_t a1 = cudaFuncSetAttribute(
       dual_softmax_bf16<WR, NJ, NST, 1>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K::kSmem);
-  (void)a0;
   (void)a1;
-  if (chunk_tiles < 1) return (int)cudaErrorInvalidValue;
+  const int err = launch_stats<WR, NJ, NST>(f0, f1, m0, m1, row_pa, row_pb,
+                                            col_pa, col_pb, rstat, cstat, B,
+                                            L, S, chunk_tiles, scale, st);
+  if (err != 0) return err;
   const int nrt = (L + K::kR - 1) / K::kR;
   const int nct = (S + K::kN - 1) / K::kN;
   const int nch = (nct + chunk_tiles - 1) / chunk_tiles;
@@ -688,19 +716,13 @@ int launch(const void* f0, const void* f1, const void* m0, const void* m1,
   // combines: one thread a row or column, 64 a block so that B = 1's
   // (L + S) threads spread over the SMs
   const int ncomb = (B * (L + S) + 63) / 64;
-  const bf16 *F0 = (const bf16*)f0, *F1 = (const bf16*)f1;
-  const float *M0 = (const float*)m0, *M1 = (const float*)m1;
-  float *RA = (float*)row_pa, *RB = (float*)row_pb, *CA = (float*)col_pa,
-        *CB = (float*)col_pb, *RS = (float*)rstat, *CS = (float*)cstat;
-  dual_softmax_bf16<WR, NJ, NST, 0><<<grid, kThreads, K::kSmem, st>>>(
-      F0, F1, M0, M1, nullptr, nullptr, RA, RB, CA, CB, B, L, S, chunk_tiles,
-      scale);
-  stats_combine<<<ncomb, 64, 0, st>>>(RA, RB, CA, CB, nch, nrt, B, L, S, RS,
-                                       CS);
+  float *RA = (float*)row_pa, *CA = (float*)col_pa;
   dual_softmax_bf16<WR, NJ, NST, 1><<<grid, kThreads, K::kSmem, st>>>(
-      F0, F1, M0, M1, RS, CS, RA, RB, CA, CB, B, L, S, chunk_tiles, scale);
-  best_combine<<<ncomb, 64, 0, st>>>(RA, (const int*)RB, CA, nch, nrt, B, L,
-                                      S, (float*)best_val, (int*)best_j,
+      (const bf16*)f0, (const bf16*)f1, (const float*)m0, (const float*)m1,
+      (const float*)rstat, (const float*)cstat, RA, (float*)row_pb, CA,
+      (float*)col_pb, B, L, S, chunk_tiles, scale);
+  best_combine<<<ncomb, 64, 0, st>>>(RA, (const int*)row_pb, CA, nch, nrt, B,
+                                      L, S, (float*)best_val, (int*)best_j,
                                       (float*)colconf);
   return (int)cudaGetLastError();
 }
@@ -730,7 +752,7 @@ extern "C" int loftr_dual_softmax(const void* f0, const void* f1,
                               colconf, B, L, S, C, chunk_tiles, scale, st);
 }
 
-// Pass 1 alone (the focal-loss kernels' statistics pass): the same inputs
+// Pass 1 alone (the focal loss's tile-path statistics): the same inputs
 // and scratch, outputs rmax, rsum [B, L] and cmax, csum [B, S].
 extern "C" int loftr_dual_softmax_stats(const void* f0, const void* f1,
                                         const void* m0, const void* m1,
@@ -773,5 +795,23 @@ extern "C" int loftr_dual_softmax_bf16(
                                       col_pb, rstat, cstat, best_val, best_j,
                                       colconf, B, L, S, chunk_tiles, scale,
                                       st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Pass 1 of the bfloat16 path alone (the focal loss's statistics): inputs,
+// tile shape and scratch as loftr_dual_softmax_bf16's; outputs rstat =
+// [rmax; 1/rsum] [2, B, L] and cstat = [cmax; 1/csum] [2, B, S].
+extern "C" int loftr_dual_softmax_bf16_stats(
+    const void* f0, const void* f1, const void* m0, const void* m1,
+    void* row_pa, void* row_pb, void* col_pa, void* col_pb, void* rstat,
+    void* cstat, int B, int L, int S, int C, int rows, int cols,
+    int chunk_tiles, float scale, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (C != loftr::bf::kC || ((uintptr_t)f0 | (uintptr_t)f1) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (rows == 128 && cols == 128)
+    return loftr::bf::launch_stats<4, 8, 2>(f0, f1, m0, m1, row_pa, row_pb,
+                                            col_pa, col_pb, rstat, cstat, B, L,
+                                            S, chunk_tiles, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -31,6 +31,7 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 # C entry points: name -> argument types (each returns cudaGetLastError()).
 SIGNATURES = {
     "loftr_coarse_layer": [_P] * 11 + [_I] * 5 + [_F, _I, _P],
@@ -38,8 +39,12 @@ SIGNATURES = {
     "loftr_fine_stage": [_P] * 7 + [_I] * 3 + [_F, _I, _P],
     "loftr_dual_softmax_stats": [_P] * 12 + [_I] * 5 + [_F, _I, _P],
     "loftr_dual_softmax_bf16": [_P] * 13 + [_I] * 7 + [_F, _P],
+    "loftr_dual_softmax_bf16_stats": [_P] * 10 + [_I] * 7 + [_F, _P],
     "loftr_focal_fwd": [_P] * 13 + [_I] * 5 + [_F] * 3 + [_I, _P],
-    "loftr_focal_bwd": [_P] * 18 + [_I] * 5 + [_F] * 3 + [_I, _P],
+    "loftr_focal_bwd": [_P] * 18 + [_I] * 5 + [_F] * 4 + [_I, _P],
+    "loftr_focal_prescale": [_P] * 4 + [_LL] * 2 + [_F, _P],
+    "loftr_focal_bf16_fwd": [_P] * 15 + [_I] * 4 + [_F] * 2 + [_I, _P],
+    "loftr_focal_bf16_bwd": [_P] * 16 + [_I] * 5 + [_F] * 3 + [_P],
     "loftr_sinkhorn": [_P] * 21 + [_I] * 7 + [_F, _I, _P],
     "loftr_sinkhorn_bf16": [_P] * 22 + [_I] * 8 + [_F, _P],
     "loftr_window_attention": [_P] * 4 + [_I] * 4 + [_F, _I, _P],

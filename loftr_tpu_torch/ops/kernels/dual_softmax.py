@@ -83,20 +83,21 @@ def _chunk_tiles(B: int, L: int, S: int) -> int:
 
 
 def bf16_plan(B: int, L: int, S: int, sms: int = 132,
-              rows: int = BF16_ROWS, cols: int = BF16_COLS
+              rows: int = BF16_ROWS, cols: int = BF16_COLS,
+              block_cost: float = BF16_BLOCK_COST
               ) -> Tuple[int, int, int, int, int]:
     """Launch plan of the bfloat16 path: (rows, cols, chunk_tiles, nrt,
     nch).  Block (row tile, chunk) covers column tiles [chunk *
     chunk_tiles, min(nct, (chunk + 1) * chunk_tiles)).  One block runs on
     an SM at a time, so the grid's time is its waves times a block's column
-    tiles plus its set-up; the chunk count minimises that (fewest blocks on
-    ties)."""
+    tiles plus its set-up (``block_cost`` column tiles); the chunk count
+    minimises that (fewest blocks on ties)."""
     nrt, nct = math.ceil(L / rows), math.ceil(S / cols)
     best = None
     for n in range(1, nct + 1):
         ct = math.ceil(nct / n)
         nch = math.ceil(nct / ct)
-        cost = math.ceil(B * nrt * nch / sms) * (ct + BF16_BLOCK_COST)
+        cost = math.ceil(B * nrt * nch / sms) * (ct + block_cost)
         if best is None or (cost, nch) < best[:2]:
             best = (cost, nch, ct)
     _, nch, ct = best

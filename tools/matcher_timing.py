@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
-"""Time one coarse matcher kernel of one source tree on one CUDA card, the
-same way for any tree, so two commits compare within one call.
+"""Time one coarse kernel of one source tree on one CUDA card, the same way
+for any tree, so two commits compare within one call.
 
-    python3 tools/matcher_timing.py --kernel {dual_softmax,sinkhorn}
+    python3 tools/matcher_timing.py --kernel {dual_softmax,sinkhorn,focal_loss}
                                     [--tree DIR] [--iters 20] [--out FILE]
 
 Imports ``loftr_tpu_torch`` from DIR (default: this repository), so its
-kernels build from DIR's sources into DIR's ``build/``.  At the main path's
-two launches, [1,4800,256] (``match_pair``) and [8,4800,256] (the batched
-forward), bf16, unmasked, it times
+kernels build from DIR's sources into DIR's ``build/``.  bf16, unmasked:
 
 - ``dual_softmax``: kernel B, ``fused_dual_softmax_match`` at temperature
-  0.1 over seeded features with 400 planted correspondences a pair;
+  0.1 over seeded features with 400 planted correspondences a pair, at the
+  main path's two launches [1,4800,256] (``match_pair``) and [8,4800,256]
+  (the batched forward);
 - ``sinkhorn``: kernel E, ``fused_sinkhorn_match`` with 3 iterations,
   ``bin_score`` 1.5 and ``prefilter`` off and on, over seeded features with
-  1500 planted correspondences a pair (``chip_smoke.ot_case``).
+  1500 planted correspondences a pair (``chip_smoke.ot_case``), at the same
+  two launches;
+- ``focal_loss``: kernel D, ``fused_focal_sums`` at temperature 0.1, the
+  forward without a graph and the forward with the backward (the gradients
+  of pos + neg), over ``chip_smoke.focal_case`` features with 1500 planted
+  ground-truth pairs, at [1,4800,256] (one pair) and [2,4800,256] (the
+  training batch).
 
 ``ms`` is CUDA events around back-to-back calls (host included),
 ``device_ms`` the profiler's device time per call (every kernel of the
@@ -64,7 +70,33 @@ def sinkhorn_cases(rng, B, L, C, dev):
             for pf in (False, True)]
 
 
-CASES = {"dual_softmax": dual_softmax_cases, "sinkhorn": sinkhorn_cases}
+def focal_loss_cases(rng, B, L, C, dev):
+    """(record keys, call) pairs of kernel D at [B, L, C]: the forward
+    without a graph, and forward + backward."""
+    import torch
+    from chip_smoke import focal_case
+    from loftr_tpu_torch.ops.kernels import focal_loss as KD
+    f0, f1, gt_j, gt_valid = focal_case(rng, B, L, C, 1500)
+    a = torch.from_numpy(f0).to(dev, torch.bfloat16).requires_grad_(True)
+    b = torch.from_numpy(f1).to(dev, torch.bfloat16).requires_grad_(True)
+    gj = torch.from_numpy(gt_j).to(dev)
+    gv = torch.from_numpy(gt_valid).to(dev)
+
+    def fwd():
+        with torch.no_grad():
+            KD.fused_focal_sums(a, b, gj, gv)
+
+    def fwd_bwd():
+        with torch.enable_grad():
+            p, n = KD.fused_focal_sums(a, b, gj, gv)
+            torch.autograd.grad(p.sum() + n.sum(), (a, b))
+    return [({"pass": "forward"}, fwd),
+            ({"pass": "forward_backward"}, fwd_bwd)]
+
+
+CASES = {"dual_softmax": dual_softmax_cases, "sinkhorn": sinkhorn_cases,
+         "focal_loss": focal_loss_cases}
+BATCHES = {"dual_softmax": (1, 8), "sinkhorn": (1, 8), "focal_loss": (1, 2)}
 
 
 def main(argv=None):
@@ -96,7 +128,7 @@ def main(argv=None):
     rng = np.random.RandomState(0)
     C, L = 256, 4800
     log = open(args.out, "a") if args.out else None
-    for B in (1, 8):
+    for B in BATCHES[args.kernel]:
         for keys, run in CASES[args.kernel](rng, B, L, C, dev):
             run()
             torch.cuda.synchronize()
