@@ -5,10 +5,12 @@
 
 Phases, each of which must pass (any failure exits non-zero):
   1. environment: card name and power limit, versions, kernel build time
-     (the kernels build from ``loftr_tpu_torch/csrc`` at first use), and
-     ``ptxas`` registers; fails if a kernel of ``coarse_layer.cu`` or
-     ``fine_stage.cu``, or a bf16 pass of ``dual_softmax.cu``,
-     ``sinkhorn.cu`` or ``focal_loss.cu``, spills;
+     (the kernels build from ``loftr_tpu_torch/csrc`` at first use),
+     ``ptxas`` registers, and each kernel's SASS size (``cuobjdump -sass``
+     of each object, read while phase 2 runs); fails if a kernel of
+     ``coarse_layer.cu`` or ``fine_stage.cu``, or a bf16 kernel of
+     ``dual_softmax.cu``, ``sinkhorn.cu``, ``focal_loss.cu``,
+     ``window_attention.cu`` or ``upsample.cu``, spills;
   2. each CUDA kernel against its plain PyTorch version on the card, at the
      shapes of the indoor_ds 640x480 main paths, in float32 and bfloat16
      (the coarse layer also at ragged masked lengths, and timed at both of
@@ -26,7 +28,12 @@ Phases, each of which must pass (any failure exits non-zero):
      kernel at B=2 and B=1, masked and unmasked, ``prefilter`` off and on,
      at a ragged masked pair L=4700 / S=4750 at B=2, L=S=7, and L=4800 /
      S=1200 and its mirror, timed at B=1 and B=8 with ``prefilter`` off and
-     on; the window-attention and upsample kernels);
+     on; the window-attention kernel in both dtypes at 2048, 1024, 1021, 7
+     and 1 windows of 25 x 128 with 8 heads and at [64,9,64] with 2 heads,
+     timed at 2048 and 1024 (events and profiled device time); the upsample
+     kernel in both dtypes at the backbone's [2,256,60,80] and
+     [2,196,120,160], [1,3,5,7], [1,4,1,9] and [2,8,7,80], timed at the
+     first two);
   3. the inference slice in float32, card (kernels) against CPU (plain);
   4. the flagship indoor_ds preset in bfloat16 at 640x480: ``match_pair``
      at B=1 and the batched model call at B=8, timed with CUDA events, with
@@ -186,6 +193,7 @@ def ptxas_summary():
     if not os.path.exists(path):
         return None
     regs, fregs, bregs, eregs, dregs, spills = {}, {}, {}, {}, {}, []
+    wregs = {}
     src = name = None
     for line in open(path):
         if line.startswith("== "):
@@ -222,6 +230,16 @@ def ptxas_summary():
             if k:
                 dregs["%s<%s>" % (k.group(1), ", ".join(k.groups()[1:]))] = \
                     int(m.group(1))
+        if m and name and src in ("window_attention.cu", "upsample.cu"):
+            k = re.search(r"(window_attn_bf16|window_attn_kernel|"
+                          r"upsample2x_band|upsample2x_kernel)I(\w+?)EEv",
+                          name)
+            if k:
+                args = re.sub(r"^f(?=L|$)", "float,", k.group(2))
+                args = re.sub(r"13__nv_bfloat16", "bf16,", args)
+                args = re.sub(r"L[ib](\d+)E", r"\1,", args)
+                wregs["%s<%s>" % (k.group(1), args.rstrip(","))] = \
+                    int(m.group(1))
         if m and name and src == "fine_stage.cu":
             k = re.search(
                 r"(fine_stage_bf16|fine_stage_kernel)(?:ILi(\d+)E)?", name)
@@ -231,7 +249,67 @@ def ptxas_summary():
     return {"coarse_layer_registers": regs, "fine_stage_registers": fregs,
             "dual_softmax_bf16_registers": bregs,
             "sinkhorn_bf16_registers": eregs,
-            "focal_bf16_registers": dregs, "spilling_kernels": spills}
+            "focal_bf16_registers": dregs,
+            "window_upsample_registers": wregs, "spilling_kernels": spills}
+
+
+def _strip_params(name):
+    """A demangled function name without its parameter list."""
+    depth = 0
+    for i in range(len(name) - 1, -1, -1):
+        depth += {")": 1, "(": -1}.get(name[i], 0)
+        if depth == 0 and name[i] == "(":
+            return name[:i]
+    return name
+
+
+def sass_start():
+    """``cuobjdump -sass`` of each object of the loaded kernel library into
+    ``<object>.sass`` beside it, one process a source, all started together
+    (``sass_sizes`` waits for them and reads the files)."""
+    from loftr_tpu_torch.ops.kernels import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    procs = {}
+    for o in sorted(os.listdir(_build.build_dir)):
+        if o.endswith(".o"):
+            path = os.path.join(_build.build_dir, o)
+            with open(path + ".sass", "w") as f:
+                procs[o[:-2]] = (subprocess.Popen(
+                    [tool, "-sass", path], stdout=f,
+                    stderr=subprocess.DEVNULL), path + ".sass")
+    return procs
+
+
+def sass_sizes(procs):
+    """{source: {kernel: bytes of SASS}} (16 bytes an instruction) from
+    the processes of ``sass_start``; names demangled by ``cu++filt`` and
+    shortened to the kernel and its template arguments."""
+    import re
+    from loftr_tpu_torch.ops.kernels import _build
+    raw = {}
+    for src, (p, path) in procs.items():
+        p.wait(timeout=900)
+        with open(path) as f:
+            out = f.read()
+        raw[src] = {}
+        for part in re.split(r"\n\s*Function : ", out)[1:]:
+            name, _, body = part.partition("\n")
+            raw[src][name.strip()] = 16 * len(
+                re.findall(r"^\s*/\*[0-9a-f]{4,}\*/", body, re.M))
+    names = sorted({n for f in raw.values() for n in f})
+    filt = os.path.join(os.path.dirname(_build._nvcc()), "cu++filt")
+    short = dict(zip(names, names))
+    if os.path.exists(filt) and names:
+        dem = subprocess.run([filt], input="\n".join(names),
+                             capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()
+        if len(dem) == len(names):
+            short = {n: _strip_params(
+                d.replace("(anonymous namespace)::", "")
+                .replace("<unnamed>::", "").replace("loftr::", "")
+                .replace("void ", "")) for n, d in zip(names, dem)}
+    return {src: {short[n]: b for n, b in f.items()}
+            for src, f in raw.items()}
 
 
 def bound_ms(flops, nbytes, peak_flops):
@@ -572,14 +650,10 @@ def ot_case(rng, B, L, C, n_plant, S=None):
 
 
 def new_kernel_checks(dev, log, results):
-    """Kernels E (Sinkhorn), F (window attention) and G (upsample) against
-    their plain versions on the card."""
+    """Kernel E (Sinkhorn) against its plain version on the card."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
     from loftr_tpu_torch.ops.kernels import sinkhorn as KE
-    from loftr_tpu_torch.ops.kernels import upsample as KG
-    from loftr_tpu_torch.ops.kernels import window_attention as KF
 
     rng = np.random.RandomState(11)
     f32, bf16 = torch.float32, torch.bfloat16
@@ -760,16 +834,34 @@ def new_kernel_checks(dev, log, results):
         shape="f0=f1 [1,4800,256] bf16, 3 iterations (checked there, at "
               "[2,4800,256], [8,4800,256] and at four ragged shapes)")
 
-    # ---- kernel F: window attention, NB=2048 and 1024, 25 x 128, 8 heads --
+    emit({"phase": 2, "kernel": "sinkhorn", "timing": results["sinkhorn"]},
+         log)
+
+
+def window_upsample_checks(dev, log, results):
+    """Kernels F (window attention) and G (upsample) against their plain
+    versions on the card, and their times at the main path's shapes."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from loftr_tpu_torch.ops.kernels import upsample as KG
+    from loftr_tpu_torch.ops.kernels import window_attention as KF
+
+    rng = np.random.RandomState(12)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    # ---- kernel F: window attention, 25 x 128, 8 heads ---------------------
     # tolerances: float32 -- sums in another order (2e-4, the JAX test's
     # bar); bfloat16 -- the same rounding points in both versions, so one
     # output ulp (2^-8 relative) plus what one flipped score rounding moves
     tolF = {f32: (2e-4, 2e-4), bf16: (2e-3, 2 ** -7)}
     errF = {}
-    # the fine stage's two shapes, and one that takes the kernel's general
-    # version (3 x 3 windows, 2 heads of 32)
+    # the fine stack's two launch shapes, ragged window counts (the bf16
+    # path walks windows a block grid-stride), and one shape that takes the
+    # general version (3 x 3 windows, 2 heads of 32)
     for NB, w2, c, h in ((2048, 25, 128, 8), (1024, 25, 128, 8),
-                         (64, 9, 64, 2)):
+                         (1021, 25, 128, 8), (7, 25, 128, 8),
+                         (1, 25, 128, 8), (64, 9, 64, 2)):
         q, k, v = (rng.randn(NB, w2, c).astype(np.float32) for _ in range(3))
         for dt in (f32, bf16):
             tq, tk, tv = (torch.from_numpy(x).to(dev, dt) for x in (q, k, v))
@@ -793,38 +885,54 @@ def new_kernel_checks(dev, log, results):
         tq, tk, tv = (torch.from_numpy(
             rng.randn(NB, 25, 128).astype(np.float32)).to(dev, bf16)
             for _ in range(3))
-        timesF[NB] = (
-            cuda_ms(lambda: KF.window_linear_attention(tq, tk, tv, 8),
-                    iters=20),
-            cuda_ms(lambda: KF.window_attention_plain(tq, tk, tv, 8),
-                    iters=5))
-    NB = 2048
-    flops = NB * 2 * 2 * 25 * 25 * 128
-    nbytes = 4 * NB * 25 * 128 * 2
-    bnd, by = bound_ms(flops, nbytes, PEAK_BF16_FLOPS)
+
+        def run():
+            return KF.window_linear_attention(tq, tk, tv, 8)
+        dms = device_ms(run) or {}
+        timesF[NB] = dict(
+            ms=cuda_ms(run, iters=20), device_ms=dms.get("total"),
+            variant=sorted(k for k in dms if k != "total"),
+            plain_ms=cuda_ms(lambda: KF.window_attention_plain(tq, tk, tv, 8),
+                             iters=5))
+
+    def f_bound(NB):    # q, k, v read once, out written once
+        return bound_ms(NB * 2 * 2 * 25 * 25 * 128, 4 * NB * 25 * 128 * 2,
+                        PEAK_BF16_FLOPS)
+    bnd, by = f_bound(2048)
+    t, t1 = timesF[2048], timesF[1024]
     results["window_attention"] = dict(
-        max_abs_err=errF[(2048, bf16)], ms=timesF[2048][0],
-        plain_ms=timesF[2048][1], bound_ms=bnd, bound_by=by, library_ms=None,
-        bound_unit="device memory", ms_1024_windows=timesF[1024][0],
-        plain_ms_1024_windows=timesF[1024][1], bound_ms_1024_windows=bnd / 2,
-        shape="q=k=v [2048,25,128] bf16, 8 heads")
+        max_abs_err=errF[(2048, bf16)], ms=t["ms"], device_ms=t["device_ms"],
+        variant=t["variant"], plain_ms=t["plain_ms"], bound_ms=bnd,
+        bound_by=by, library_ms=None, bound_unit="device memory",
+        ms_1024_windows=t1["ms"], device_ms_1024_windows=t1["device_ms"],
+        plain_ms_1024_windows=t1["plain_ms"],
+        bound_ms_1024_windows=f_bound(1024)[0],
+        shape="q=k=v [2048,25,128] bf16, 8 heads (checked there, at 1024, "
+              "1021, 7 and 1 windows and at [64,9,64] with 2 heads)")
 
     # ---- kernel G: x2 upsample at the backbone's two sites, B=1 pair -----
     # tolerances: float32 -- two-term float sums, fused or not (1e-6);
     # bfloat16 -- both versions round the same float sums of exact
-    # products, up to the tensor cores' accumulation: one ulp
+    # products: one ulp.  The plain version runs on the CPU copy of the
+    # inputs, where its matrix products sum in float32; on the card
+    # cuBLAS may reduce a bf16 product in bf16, which moves an output by
+    # more than its own ulp where the two taps cancel (its distance to the
+    # kernel is reported beside)
     tolG = {f32: (1e-6, 1e-6), bf16: (1e-6, 2 ** -7)}
     errG, timesG = {}, {}
-    shapes = ((2, 256, H // 8, W // 8), (2, 196, H // 4, W // 4))
-    for shp in shapes:
+    small, big = (2, 256, H // 8, W // 8), (2, 196, H // 4, W // 4)
+    # the two sites, then rows the band path takes on its scalar path
+    # (widths 7 and 9, one input row) and a ragged last band (2H = 14)
+    for shp in (small, big, (1, 3, 5, 7), (1, 4, 1, 9), (2, 8, 7, 80)):
         x = rng.randn(*shp).astype(np.float32)
         for dt in (f32, bf16):
             xt = torch.from_numpy(x).to(dev, dt)
             got = KG.upsample2x(xt).float()
-            want = KG.upsample2x_plain(xt).float()
+            card = KG.upsample2x_plain(xt).float()
             lib = F.interpolate(xt, scale_factor=2, mode="bilinear",
                                 align_corners=True).float()
             torch.cuda.synchronize()
+            want = KG.upsample2x_plain(xt.cpu()).float().to(dev)
             d = (got - want).abs()
             atol, rtol = tolG[dt]
             ok = bool((d <= atol + rtol * want.abs()).all()) \
@@ -832,34 +940,47 @@ def new_kernel_checks(dev, log, results):
             rec = {"phase": 2, "kernel": "upsample", "shape": list(shp),
                    "dtype": str(dt)[6:], "max_abs_err": float(d.max()),
                    "exactly_equal_share": float((d == 0).float().mean()),
+                   "max_abs_diff_from_plain_on_card":
+                       float((got - card).abs().max()),
+                   "plain_on_card_unequal":
+                       int((card != want).sum()),
                    "max_abs_diff_from_F_interpolate":
                        float((got - lib).abs().max()),
                    "atol": atol, "rtol": rtol, "ok": ok}
             emit(rec, log)
             check(ok, f"upsample disagrees: {rec}")
             errG[(shp, dt)] = float(d.max())
-        xt = torch.from_numpy(x).to(dev, bf16)
-        timesG[shp] = (
-            cuda_ms(lambda: KG.upsample2x(xt), iters=20),
-            cuda_ms(lambda: KG.upsample2x_plain(xt), iters=10),
-            cuda_ms(lambda: F.interpolate(xt, scale_factor=2, mode="bilinear",
-                                          align_corners=True), iters=20))
+        if shp in (small, big):
+            xt = torch.from_numpy(x).to(dev, bf16)
+
+            def run():
+                return KG.upsample2x(xt)
+            dms = device_ms(run) or {}
+            timesG[shp] = dict(
+                ms=cuda_ms(run, iters=20), device_ms=dms.get("total"),
+                variant=sorted(k for k in dms if k != "total"),
+                plain_ms=cuda_ms(lambda: KG.upsample2x_plain(xt), iters=10),
+                library_ms=cuda_ms(lambda: F.interpolate(
+                    xt, scale_factor=2, mode="bilinear", align_corners=True),
+                    iters=20))
 
     def g_bound(shp):   # input once, output (4x) once; 8 flop an output
         n = shp[0] * shp[1] * shp[2] * shp[3]
         return bound_ms(4 * n * 8, 5 * n * 2, PEAK_F32_FLOPS)
-    small, big = shapes
     bnd, by = g_bound(big)
+    t, t1 = timesG[big], timesG[small]
     results["upsample"] = dict(
-        max_abs_err=errG[(big, bf16)], ms=timesG[big][0],
-        plain_ms=timesG[big][1], bound_ms=bnd, bound_by=by,
-        library_ms=timesG[big][2], bound_unit="device memory",
+        max_abs_err=errG[(big, bf16)], ms=t["ms"], device_ms=t["device_ms"],
+        variant=t["variant"], plain_ms=t["plain_ms"], bound_ms=bnd,
+        bound_by=by, library_ms=t["library_ms"], bound_unit="device memory",
         library="torch.nn.functional.interpolate(scale_factor=2, "
                 "mode='bilinear', align_corners=True)",
-        ms_small=timesG[small][0], plain_ms_small=timesG[small][1],
-        library_ms_small=timesG[small][2], bound_ms_small=g_bound(small)[0],
-        shape="x [2,196,120,160] bf16 (small: [2,256,60,80])")
-    for k in ("sinkhorn", "window_attention", "upsample"):
+        ms_small=t1["ms"], device_ms_small=t1["device_ms"],
+        plain_ms_small=t1["plain_ms"], library_ms_small=t1["library_ms"],
+        bound_ms_small=g_bound(small)[0],
+        shape="x [2,196,120,160] bf16 (small: [2,256,60,80]; checked there "
+              "and at [1,3,5,7], [1,4,1,9], [2,8,7,80])")
+    for k in ("window_attention", "upsample"):
         emit({"phase": 2, "kernel": k, "timing": results[k]}, log)
 
 
@@ -1807,7 +1928,7 @@ def main(argv=None):
         return 2
     sys.path.insert(0, REPO)
     dev = torch.device("cuda", 0)
-    log = None
+    log = sass = None
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         log = open(args.out, "a")
@@ -1823,6 +1944,7 @@ def main(argv=None):
         from loftr_tpu_torch.ops.kernels import _build
         t0 = time.perf_counter()
         _build.library()
+        sass = sass_start()
         ptxas = ptxas_summary()
         emit({"phase": 1, "nvidia_smi": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "python": sys.version.split()[0],
@@ -1841,7 +1963,9 @@ def main(argv=None):
         for src_name, kern in (("dual_softmax.cu", "dual_softmax_bf16"),
                                ("sinkhorn.cu", "sinkhorn_bf16"),
                                ("focal_loss.cu", "focal_loss_bf16"),
-                               ("focal_loss.cu", "focal_grad_bf16")):
+                               ("focal_loss.cu", "focal_grad_bf16"),
+                               ("window_attention.cu", "window_attn_bf16"),
+                               ("upsample.cu", "upsample2x_band")):
             check(ptxas is None or not any(
                 k.startswith(src_name + ":") and kern in k
                 for k in ptxas["spilling_kernels"]),
@@ -1852,6 +1976,11 @@ def main(argv=None):
             if 2 in phases:
                 kernel_checks(dev, log, results)
                 new_kernel_checks(dev, log, results)
+                window_upsample_checks(dev, log, results)
+            # phase 1's SASS sizes, read while phase 2 ran
+            t_s = time.perf_counter()
+            emit({"phase": 1, "sass_bytes": sass_sizes(sass),
+                  "sass_wait_s": time.perf_counter() - t_s}, log)
             if 3 in phases:
                 slice_fp32(dev, log)
             if 4 in phases:
@@ -1905,7 +2034,10 @@ def main(argv=None):
                              train_counts["focal_loss_backward"]}}
             optional = ("ms_forward", "ms_backward", "peak_mem_MiB",
                         "plain_peak_mem_MiB", "ms_prefilter",
-                        "ms_1024_windows", "ms_small", "library_ms_small",
+                        "ms_1024_windows", "device_ms_1024_windows",
+                        "plain_ms_1024_windows", "bound_ms_1024_windows",
+                        "ms_small", "device_ms_small", "plain_ms_small",
+                        "bound_ms_small", "library_ms_small",
                         "library", "shape", "device_ms", "ms_cross_B1",
                         "device_ms_cross_B1", "plain_ms_cross_B1",
                         "bound_ms_cross_B1", "variant", "ms_8192",
@@ -1941,6 +2073,10 @@ def main(argv=None):
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
     finally:
+        for p, _ in (sass or {}).values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
         if log is not None:
             log.close()
     return 0

@@ -10,7 +10,9 @@ dtype), as one gather pass: every output element reads its 2 x 2 taps, and
 the interpolation matrices with their zero products are never formed.
 
 What bounds it on the H100: bytes, the input once and four times as many
-output values.
+output values.  In bf16 a block takes one map's band of 64 output rows
+through shared memory and writes 16 bytes a thread; float32 (and rows over
+1176 wide) take one pass over the output rows (the source's header note).
 
 ``upsample2x`` launches the kernel for CUDA tensors and runs the plain
 version for CPU tensors only; inference only (no gradient on the CUDA

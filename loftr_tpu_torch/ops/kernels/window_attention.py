@@ -11,9 +11,11 @@ attention over the window (``ops.attention.linear_attention`` without
 masks).  The score form of the TPU kernel is kept, with its rounding
 points; the KV form was not taken.
 
-What bounds it on the H100: bytes, 4 tensors of NB*W2*C values.  One block
-holds one window's q, k, v in shared memory; one thread owns one (query row,
-head).
+What bounds it on the H100: bytes, 4 tensors of NB*W2*C values.  In bf16 at
+the fine stage's shape (W2 = 25, C = 128, 8 heads) one wave of blocks walks
+the windows, one warp a (window, head) on ``mma.sync`` fed by a 2-stage
+``cp.async`` ring; every other shape and float32 take one block a window,
+one thread a (query row, head) (the source's header note).
 
 ``window_linear_attention`` launches the kernel for CUDA tensors and runs
 :func:`window_attention_plain` for CPU tensors only; inference only (no

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time one coarse kernel of one source tree on one CUDA card, the same way
-for any tree, so two commits compare within one call.
+"""Time one kernel of one source tree on one CUDA card, the same way for
+any tree, so two commits compare within one call.
 
-    python3 tools/matcher_timing.py --kernel {dual_softmax,sinkhorn,focal_loss}
+    python3 tools/matcher_timing.py --kernel {dual_softmax,sinkhorn,focal_loss,
+                                              window_attention,upsample}
                                     [--tree DIR] [--iters 20] [--out FILE]
 
 Imports ``loftr_tpu_torch`` from DIR (default: this repository), so its
@@ -20,7 +21,12 @@ kernels build from DIR's sources into DIR's ``build/``.  bf16, unmasked:
   forward without a graph and the forward with the backward (the gradients
   of pos + neg), over ``chip_smoke.focal_case`` features with 1500 planted
   ground-truth pairs, at [1,4800,256] (one pair) and [2,4800,256] (the
-  training batch).
+  training batch);
+- ``window_attention``: kernel F, ``window_linear_attention`` with 8 heads
+  over seeded q = k = v [NB, 25, 128] (the fine stack's launches: self at
+  NB = 2048, both images packed, and cross at 1024);
+- ``upsample``: kernel G, ``upsample2x`` over seeded [2,196,120,160] and
+  [2,256,60,80] maps (the backbone's two sites at 640x480, B=1).
 
 ``ms`` is CUDA events around back-to-back calls (host included),
 ``device_ms`` the profiler's device time per call (every kernel of the
@@ -94,9 +100,40 @@ def focal_loss_cases(rng, B, L, C, dev):
             ({"pass": "forward_backward"}, fwd_bwd)]
 
 
-CASES = {"dual_softmax": dual_softmax_cases, "sinkhorn": sinkhorn_cases,
-         "focal_loss": focal_loss_cases}
-BATCHES = {"dual_softmax": (1, 8), "sinkhorn": (1, 8), "focal_loss": (1, 2)}
+def window_attention_cases(rng, NB, dev):
+    """(record keys, call) pairs of kernel F at q = k = v [NB, 25, 128]."""
+    import torch
+    from loftr_tpu_torch.ops.kernels import window_attention as KF
+    x = torch.from_numpy(rng.randn(NB, 25, 128).astype("float32")).to(
+        dev, torch.bfloat16)
+    return [({"shape": [NB, 25, 128]},
+             lambda: KF.window_linear_attention(x, x, x, 8))]
+
+
+def upsample_cases(rng, shape, dev):
+    """(record keys, call) pairs of kernel G at one [B, C, H, W]."""
+    import torch
+    from loftr_tpu_torch.ops.kernels import upsample as KG
+    x = torch.from_numpy(rng.randn(*shape).astype("float32")).to(
+        dev, torch.bfloat16)
+    return [({"shape": list(shape)}, lambda: KG.upsample2x(x))]
+
+
+def coarse(cases):
+    """Cases at [B, 4800, 256] for each batch size B."""
+    return lambda rng, B, dev: [
+        ({"shape": [B, 4800, 4800, 256], **keys}, run)
+        for keys, run in cases(rng, B, 4800, 256, dev)]
+
+
+CASES = {"dual_softmax": coarse(dual_softmax_cases),
+         "sinkhorn": coarse(sinkhorn_cases),
+         "focal_loss": coarse(focal_loss_cases),
+         "window_attention": window_attention_cases,
+         "upsample": upsample_cases}
+SIZES = {"dual_softmax": (1, 8), "sinkhorn": (1, 8), "focal_loss": (1, 2),
+         "window_attention": (2048, 1024),
+         "upsample": ((2, 196, 120, 160), (2, 256, 60, 80))}
 
 
 def main(argv=None):
@@ -126,15 +163,14 @@ def main(argv=None):
                          text=True, timeout=30).stdout.strip()
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(0)
-    C, L = 256, 4800
     log = open(args.out, "a") if args.out else None
-    for B in BATCHES[args.kernel]:
-        for keys, run in CASES[args.kernel](rng, B, L, C, dev):
+    for size in SIZES[args.kernel]:
+        for keys, run in CASES[args.kernel](rng, size, dev):
             run()
             torch.cuda.synchronize()
             dms = device_ms(run) or {}
             rec = {"tree": tree, "kernel": args.kernel, "nvidia_smi": smi,
-                   "shape": [B, L, L, C], **keys,
+                   **keys,
                    "ms": cuda_ms(run, iters=args.iters),
                    "device_ms": dms.get("total"), "kernels": dms}
             line = json.dumps(rec)

@@ -8,9 +8,9 @@ Each named source (default: every ``.cu`` in NEW_CSRC) is compiled from both
 directories with the production build's flags (``ops/kernels/_build.py``),
 one ``nvcc`` a file, all started together, into ``build/sass_compare/``;
 ``cuobjdump -sass`` of each object is split into its functions, and each
-function's code is normalised (the
-anonymous-namespace hash ``_GLOBAL__N__<hex>_<n>_<file>_cu_<hex>`` and the
-``identifier`` lines removed) before it is compared.  Prints one JSON
+function's code is normalised (the anonymous-namespace hash
+``_GLOBAL__N__<hex>_<n>_<file>_cu_<hex>`` and the ``identifier`` lines
+removed, runs of blanks collapsed) before it is compared.  Prints one JSON
 object a source: functions identical, differing, only in OLD, only in NEW;
 with ``--out`` it also writes each side's normalised SASS there.  Exits 1 if
 a function present in both trees differs.
@@ -30,7 +30,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def _norm(text):
     text = re.sub(r"\d*_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}", "",
                   text)
-    return "\n".join(line for line in text.splitlines()
+    # cuobjdump pads its columns to the widest instruction of the object,
+    # so runs of blanks carry no meaning
+    return "\n".join(" ".join(line.split()) for line in text.splitlines()
                      if "identifier =" not in line)
 
 
