@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``loftr_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9] [--out FILE]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10] [--out FILE]
 
 Phases, each of which must pass (any failure exits non-zero):
   1. environment: card name and power limit, versions, kernel build time
@@ -57,11 +57,22 @@ Phases, each of which must pass (any failure exits non-zero):
      upsample switch on and the fine layer stack with ``fused_window_attn``
      on, each compared with the switch off;
   9. ``Trainer.train_step`` with ``indoor_ot`` in bfloat16 at B=2: 4 steps,
-     finite losses, a finite non-zero gradient into ``bin_score``.
+     finite losses, a finite non-zero gradient into ``bin_score``;
+ 10. the evaluation path: synthetic MegaDepth scenes (2 x 3 views, 6
+     pairs) at 840 px, ``loftr_tpu_torch.test.main`` with full-width
+     ``outdoor_ds`` in bfloat16 (L = S = 11025, K = 2048, thr 0) once with
+     each pose solver (``batched``, ``opencv``, ``native``, ``5pt``,
+     ``batched5pt``; the JSON keys of ``test.py``, finite); the device
+     solvers within 0.1 deg of the ground-truth pose on 500 exact
+     correspondences, also with 30% of them random (the host solvers
+     within 2 deg, a cross-check); the card's epipolar errors against the
+     CPU's (rtol 1e-5); eval pairs/s, the model call's ms and each
+     solver's ms per pair.
 Each main path (one ``match_pair`` call of each preset; the 8 training
-steps; the two switch runs) runs with every kernel launch counter set to 0
-just before it; the counts read just after it must show every kernel of
-that path.  ``--phases 5,6`` runs only the indoor_ds training.  Results go
+steps; the two switch runs; the CLI's ``batched`` run) runs with every
+kernel launch counter set to 0 just before it; the counts read just after
+it must show every kernel of that path.  ``--phases 5,6`` runs only the
+indoor_ds training, ``--phases 10`` only the evaluation path.  Results go
 to stdout one JSON object per line; the line before the last is the kernel
 summary, and the last line is the contract line ``{"ok": true, "device":
 {...}}``.  Without CUDA, or without the package beside this script, it exits
@@ -333,6 +344,134 @@ def rel_gap_top2(conf):
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 
+def check_coarse(dev, log, w, name, x, s, xm, sm, phase=2):
+    """Kernel A against its plain version on one case (numpy inputs; ``s``
+    None for a self layer), in float32 and bfloat16.  Returns each dtype's
+    max abs error; fails on a disagreement."""
+    import torch
+    from loftr_tpu_torch.ops.kernels import coarse_layer as KA
+    f32, bf16 = torch.float32, torch.bfloat16
+    # tolerances: float32 -- the bar of the JAX kernel's own tests
+    # (2e-4, test_coarse_layer_fused.py), sums in another order; bfloat16 --
+    # a different summation order can flip one bf16 rounding of an
+    # intermediate (2^-8 relative), which the next product carries, so the
+    # bar is a few output ulps at |y| ~ 4 with a small mean.
+    tol = {f32: (2e-4, 2e-4, None), bf16: (0.125, 0.0, 5e-3)}
+    err = {}
+    for dt in (f32, bf16):
+        xt = torch.from_numpy(x).to(dev, dt)
+        st = xt if s is None else torch.from_numpy(s).to(dev, dt)
+        xmt = None if xm is None else torch.from_numpy(xm).to(dev)
+        smt = None if sm is None else torch.from_numpy(sm).to(dev)
+        got = KA.fused_coarse_layer(xt, st, w, xmt, smt, 8)
+        want = KA.coarse_layer_plain(xt, st, w, xmt, smt, 8)
+        torch.cuda.synchronize()
+        d = (got.float() - want.float()).abs()
+        atol, rtol, mean_tol = tol[dt]
+        ok = bool((d <= atol + rtol * want.float().abs()).all())
+        if mean_tol is not None:
+            ok = ok and float(d.mean()) <= mean_tol
+        rec = {"phase": phase, "kernel": "coarse_layer", "case": name,
+               "dtype": str(dt)[6:], "max_abs_err": float(d.max()),
+               "mean_abs_err": float(d.mean()), "atol": atol,
+               "rtol": rtol, "mean_tol": mean_tol, "ok": ok}
+        emit(rec, log)
+        check(ok, f"coarse_layer {name} {dt} disagrees: {rec}")
+        err[dt] = float(d.max())
+    return err
+
+
+def check_dual(dev, log, name, x0, x1, mk0, mk1, phase=2):
+    """Kernel B against its plain version on one case (numpy features and
+    masks, or None), in float32 and bfloat16; an argmax or validity that
+    differs must be a near-tie of the plain conf.  Returns each dtype's max
+    abs error; fails on a disagreement."""
+    import torch
+    from loftr_tpu_torch.ops.kernels import dual_softmax as KB
+    err = {}
+    for dt in (torch.float32, torch.bfloat16):
+        a = torch.from_numpy(x0).to(dev, dt)
+        bb = torch.from_numpy(x1).to(dev, dt)
+        m0 = None if mk0 is None else torch.from_numpy(mk0).to(dev)
+        m1 = None if mk1 is None else torch.from_numpy(mk1).to(dev)
+        bv, bj, cc = KB.fused_dual_softmax_match(a, bb, 0.1, m0, m1)
+        pv, pj, pc = KB.dual_softmax_plain(a, bb, 0.1, m0, m1)
+        # the plain conf, to explain argmax differences by near-ties
+        B_, L_, C_ = a.shape
+        S_ = bb.shape[1]
+        sim = torch.matmul(a.float(), bb.float().transpose(1, 2))
+        sim = sim / (C_ * 0.1)
+        mm0 = torch.ones(B_, L_, device=dev) if m0 is None else m0.float()
+        mm1 = torch.ones(B_, S_, device=dev) if m1 is None else m1.float()
+        sim = sim + (mm0[:, :, None] * mm1[:, None, :] - 1.0) * 1e9
+        conf = torch.softmax(sim, 2) * torch.softmax(sim, 1)
+        del sim
+        row_gap = rel_gap_top2(conf) if S_ > 1 else torch.ones_like(pv)
+        col_gap = (rel_gap_top2(conf.transpose(1, 2)) if L_ > 1
+                   else torch.ones_like(pc))
+        del conf
+        # valid as the epilogue forms it (thr 0.2, MNN), both versions
+        vk = (bv > 0.2) & (bv >= torch.gather(cc, 1, bj.long()))
+        vp = (pv > 0.2) & (pv >= torch.gather(pc, 1, pj.long()))
+        torch.cuda.synchronize()
+        j_diff = bj != pj
+        v_diff = vk != vp
+        near = (row_gap < 1e-6) | (torch.gather(
+            col_gap, 1, pj.long()) < 1e-6)
+        unexplained = int(((j_diff | v_diff) & ~near).sum())
+        dv = float((bv - pv).abs().max())
+        dc = float((cc - pc).abs().max())
+        # tolerance: conf in [0, 1], float exps of sims that differ by
+        # the summation order of a C=256 dot (the JAX test bar, 1e-4
+        # relative; 1e-6 absolute for tiny values)
+        okv = bool(((bv - pv).abs() <= 1e-6 + 1e-4 * pv.abs()).all())
+        okc = bool(((cc - pc).abs() <= 1e-6 + 1e-4 * pc.abs()).all())
+        rec = {"phase": phase, "kernel": "dual_softmax", "case": name,
+               "shape": [B_, L_, S_, C_], "masked": mk0 is not None,
+               "dtype": str(dt)[6:], "best_val_max_abs_err": dv,
+               "colconf_max_abs_err": dc,
+               "best_j_mismatch": int(j_diff.sum()),
+               "valid_mismatch": int(v_diff.sum()),
+               "near_tie_rows_1e-6": int(near.sum()),
+               "unexplained_mismatch": unexplained,
+               "n_valid": int(vk.sum()), "ok": okv and okc
+               and unexplained == 0}
+        emit(rec, log)
+        check(rec["ok"], f"dual_softmax disagrees: {rec}")
+        err[dt] = max(dv, dc)
+    return err
+
+
+def check_fine(dev, log, l0, l1, w0, w1, phase=2):
+    """Kernel C against its plain version on one set of window pairs
+    (numpy [NB, 25, C]), in float32 and bfloat16.  Returns each dtype's max
+    abs error; fails on a disagreement."""
+    import torch
+    from loftr_tpu_torch.ops.kernels import fine_stage as KC
+    f32, bf16 = torch.float32, torch.bfloat16
+    # float32: the JAX kernel test's bar (2e-4, test_fine_stage_fused.py);
+    # bfloat16: the soft-argmax of features that may differ by one bf16
+    # rounding flip, in window coordinates [-1, 1]
+    tol = {f32: 2e-4, bf16: 5e-2}
+    err = {}
+    for dt in (f32, bf16):
+        a = torch.from_numpy(w0).to(dev, dt)
+        bb = torch.from_numpy(w1).to(dev, dt)
+        got = KC.fused_fine_stage(a, bb, l0, l1, 8)
+        want = KC.fine_stage_plain(a, bb, l0, l1, 8)
+        torch.cuda.synchronize()
+        d = (got - want).abs()
+        ok = bool((d <= tol[dt] + tol[dt] * want.abs()).all())
+        rec = {"phase": phase, "kernel": "fine_stage", "NB": len(w0),
+               "dtype": str(dt)[6:], "max_abs_err": float(d.max()),
+               "mean_abs_err": float(d.mean()), "atol": tol[dt],
+               "rtol": tol[dt], "ok": ok}
+        emit(rec, log)
+        check(ok, f"fine_stage disagrees: {rec}")
+        err[dt] = float(d.max())
+    return err
+
+
 def kernel_checks(dev, log, results):
     import numpy as np
     import torch
@@ -344,7 +483,7 @@ def kernel_checks(dev, log, results):
     from loftr_tpu_torch.utils.weights import init_weights
 
     rng = np.random.RandomState(0)
-    f32, bf16 = torch.float32, torch.bfloat16
+    bf16 = torch.bfloat16
 
     def enc(c, seed):
         layer = init_weights(LoFTREncoderLayer(c, 8), seed).to(dev)
@@ -369,34 +508,10 @@ def kernel_checks(dev, log, results):
         cases[f"ragged_B{b}_masked"] = (
             rr.randn(b, L - 100, C) * 0.5, rr.randn(b, L - 50, C) * 0.5,
             rr.rand(b, L - 100) > 0.2, rr.rand(b, L - 50) > 0.2)
-    # tolerances: float32 -- the bar of the JAX kernel's own tests
-    # (2e-4, test_coarse_layer_fused.py), sums in another order; bfloat16 --
-    # a different summation order can flip one bf16 rounding of an
-    # intermediate (2^-8 relative), which the next product carries, so the
-    # bar is a few output ulps at |y| ~ 4 with a small mean.
-    tolA = {f32: (2e-4, 2e-4, None), bf16: (0.125, 0.0, 5e-3)}
     errA = {}
     for name, (x, s, xm, sm) in cases.items():
-        for dt in (f32, bf16):
-            xt = torch.from_numpy(x).to(dev, dt)
-            st = xt if s is None else torch.from_numpy(s).to(dev, dt)
-            xmt = None if xm is None else torch.from_numpy(xm).to(dev)
-            smt = None if sm is None else torch.from_numpy(sm).to(dev)
-            got = KA.fused_coarse_layer(xt, st, wA, xmt, smt, 8)
-            want = KA.coarse_layer_plain(xt, st, wA, xmt, smt, 8)
-            torch.cuda.synchronize()
-            d = (got.float() - want.float()).abs()
-            atol, rtol, mean_tol = tolA[dt]
-            ok = bool((d <= atol + rtol * want.float().abs()).all())
-            if mean_tol is not None:
-                ok = ok and float(d.mean()) <= mean_tol
-            rec = {"phase": 2, "kernel": "coarse_layer", "case": name,
-                   "dtype": str(dt)[6:], "max_abs_err": float(d.max()),
-                   "mean_abs_err": float(d.mean()), "atol": atol,
-                   "rtol": rtol, "mean_tol": mean_tol, "ok": ok}
-            emit(rec, log)
-            check(ok, f"coarse_layer {name} {dt} disagrees: {rec}")
-            errA[(name, dt)] = float(d.max())
+        for dt, e in check_coarse(dev, log, wA, name, x, s, xm, sm).items():
+            errA[(name, dt)] = e
     # timing in bf16 at the main path's two launch shapes: the packed self
     # layers (x = src [2,4800,256]) and each cross direction ([1,4800,256]);
     # ms: CUDA events around back-to-back wrapper calls (host included),
@@ -465,56 +580,8 @@ def kernel_checks(dev, log, results):
     casesB["long_S11025"] = pairB(1, L, 105 * 105, False)
     errB = {}
     for name, (x0, x1, mk0, mk1) in casesB.items():
-        for dt in (f32, bf16):
-            a = torch.from_numpy(x0).to(dev, dt)
-            bb = torch.from_numpy(x1).to(dev, dt)
-            m0 = None if mk0 is None else torch.from_numpy(mk0).to(dev)
-            m1 = None if mk1 is None else torch.from_numpy(mk1).to(dev)
-            bv, bj, cc = KB.fused_dual_softmax_match(a, bb, 0.1, m0, m1)
-            pv, pj, pc = KB.dual_softmax_plain(a, bb, 0.1, m0, m1)
-            # the plain conf, to explain argmax differences by near-ties
-            B_, L_, C_ = a.shape
-            S_ = bb.shape[1]
-            sim = torch.matmul(a.float(), bb.float().transpose(1, 2))
-            sim = sim / (C_ * 0.1)
-            mm0 = torch.ones(B_, L_, device=dev) if m0 is None else m0.float()
-            mm1 = torch.ones(B_, S_, device=dev) if m1 is None else m1.float()
-            sim = sim + (mm0[:, :, None] * mm1[:, None, :] - 1.0) * 1e9
-            conf = torch.softmax(sim, 2) * torch.softmax(sim, 1)
-            del sim
-            row_gap = rel_gap_top2(conf) if S_ > 1 else torch.ones_like(pv)
-            col_gap = (rel_gap_top2(conf.transpose(1, 2)) if L_ > 1
-                       else torch.ones_like(pc))
-            del conf
-            # valid as the epilogue forms it (thr 0.2, MNN), both versions
-            vk = (bv > 0.2) & (bv >= torch.gather(cc, 1, bj.long()))
-            vp = (pv > 0.2) & (pv >= torch.gather(pc, 1, pj.long()))
-            torch.cuda.synchronize()
-            j_diff = bj != pj
-            v_diff = vk != vp
-            near = (row_gap < 1e-6) | (torch.gather(
-                col_gap, 1, pj.long()) < 1e-6)
-            unexplained = int(((j_diff | v_diff) & ~near).sum())
-            dv = float((bv - pv).abs().max())
-            dc = float((cc - pc).abs().max())
-            # tolerance: conf in [0, 1], float exps of sims that differ by
-            # the summation order of a C=256 dot (the JAX test bar, 1e-4
-            # relative; 1e-6 absolute for tiny values)
-            okv = bool(((bv - pv).abs() <= 1e-6 + 1e-4 * pv.abs()).all())
-            okc = bool(((cc - pc).abs() <= 1e-6 + 1e-4 * pc.abs()).all())
-            rec = {"phase": 2, "kernel": "dual_softmax", "case": name,
-                   "shape": [B_, L_, S_, C_], "masked": mk0 is not None,
-                   "dtype": str(dt)[6:], "best_val_max_abs_err": dv,
-                   "colconf_max_abs_err": dc,
-                   "best_j_mismatch": int(j_diff.sum()),
-                   "valid_mismatch": int(v_diff.sum()),
-                   "near_tie_rows_1e-6": int(near.sum()),
-                   "unexplained_mismatch": unexplained,
-                   "n_valid": int(vk.sum()), "ok": okv and okc
-                   and unexplained == 0}
-            emit(rec, log)
-            check(rec["ok"], f"dual_softmax disagrees: {rec}")
-            errB[(name, dt)] = max(dv, dc)
+        for dt, e in check_dual(dev, log, name, x0, x1, mk0, mk1).items():
+            errB[(name, dt)] = e
     # timing in bf16 at the main path's launches, B=1 (match_pair) and B=8
     # (the batched forward); ms: CUDA events around back-to-back wrapper
     # calls (host included), device_ms: the profiler's time per call (the
@@ -569,27 +636,10 @@ def kernel_checks(dev, log, results):
     rc = np.random.RandomState(2)
     wins = {nb: (rc.randn(nb, 25, Cf) * 0.5, rc.randn(nb, 25, Cf) * 0.5)
             for nb in (1024, 8192, 1920, 1021, 7, 1)}
-    # float32: the JAX kernel test's bar (2e-4, test_fine_stage_fused.py);
-    # bfloat16: the soft-argmax of features that may differ by one bf16
-    # rounding flip, in window coordinates [-1, 1]
-    tolC = {f32: 2e-4, bf16: 5e-2}
     errC = {}
     for nb, (w0, w1) in wins.items():
-        for dt in (f32, bf16):
-            a = torch.from_numpy(w0).to(dev, dt)
-            bb = torch.from_numpy(w1).to(dev, dt)
-            got = KC.fused_fine_stage(a, bb, l0, l1, 8)
-            want = KC.fine_stage_plain(a, bb, l0, l1, 8)
-            torch.cuda.synchronize()
-            d = (got - want).abs()
-            ok = bool((d <= tolC[dt] + tolC[dt] * want.abs()).all())
-            rec = {"phase": 2, "kernel": "fine_stage", "NB": nb,
-                   "dtype": str(dt)[6:], "max_abs_err": float(d.max()),
-                   "mean_abs_err": float(d.mean()), "atol": tolC[dt],
-                   "rtol": tolC[dt], "ok": ok}
-            emit(rec, log)
-            check(ok, f"fine_stage disagrees: {rec}")
-            errC[(nb, dt)] = float(d.max())
+        for dt, e in check_fine(dev, log, l0, l1, w0, w1).items():
+            errC[(nb, dt)] = e
     # timing in bf16 at the two forward shapes, with the weights packed
     # once as the model passes them (models/fused_fine.py); ms: CUDA events
     # around back-to-back wrapper calls (host included), device_ms: the
@@ -1910,9 +1960,315 @@ def train_ot(dev, log, steps=4):
           "pairs_per_s": 1000.0 * B / step_ms, "peak_mem_MiB": peak}, log)
 
 
+# --------------------------------------------------------------------------
+# phase 10: the evaluation path
+# --------------------------------------------------------------------------
+
+EVAL_SOLVERS = ("batched", "opencv", "native", "5pt", "batched5pt")
+EVAL_KEYS = {"auc@5", "auc@10", "auc@20", "prec@1e-04"}
+
+
+def exact_matches(item, n, outlier_frac, rng):
+    """``n`` exact correspondences of a pair: depth-valid pixels of view 0
+    projected into view 1 with the ground-truth pose (float64, then
+    float32), a share ``outlier_frac`` of them replaced by random points."""
+    import numpy as np
+    d0 = item["depth0"]
+    K0, K1 = item["K0"].astype(np.float64), item["K1"].astype(np.float64)
+    T = item["T_0to1"].astype(np.float64)
+    ys, xs = np.nonzero(d0 > 0)
+    sel = rng.choice(len(xs), 4 * n, replace=False)
+    u = np.stack([xs[sel], ys[sel]], -1).astype(np.float64)
+    X0 = d0[ys[sel], xs[sel]][:, None] * (
+        np.c_[u, np.ones(len(u))] @ np.linalg.inv(K0).T)
+    X1 = X0 @ T[:3, :3].T + T[:3, 3]
+    keep = np.nonzero(X1[:, 2] > 0)[0][:n]
+    check(len(keep) == n, f"only {len(keep)} points in front of view 1")
+    p1 = X1[keep] @ K1.T
+    k1 = p1[:, :2] / p1[:, 2:]
+    out = rng.rand(n) < outlier_frac
+    k1[out] = rng.rand(int(out.sum()), 2) * np.array(d0.shape[::-1])
+    return u[keep].astype(np.float32), k1.astype(np.float32)
+
+
+def pose_angles(T, R, t):
+    """(R error, t error) in degrees from the chord lengths, 2 asin(|R -
+    R_gt|_F / sqrt 8) and 2 asin(|t^ -+ t^_gt| / 2): the same angles as
+    ``relative_pose_error``'s arccos of a trace and a dot product, without
+    its loss near 0 (arccos(1 - d) of a float32 rotation reads ~0.03 deg
+    for an exact one)."""
+    import numpy as np
+    R_gt, t_gt = T[:3, :3], T[:3, 3] / np.linalg.norm(T[:3, 3])
+    tn = t / np.linalg.norm(t)
+    chord_t = min(np.linalg.norm(tn - t_gt), np.linalg.norm(tn + t_gt))
+    chord_R = np.linalg.norm(R - R_gt) / np.sqrt(8.0)
+    return (float(np.rad2deg(2 * np.arcsin(min(chord_R, 1.0)))),
+            float(np.rad2deg(2 * np.arcsin(min(chord_t / 2, 1.0)))))
+
+
+def crop_views(root, npzs, size):
+    """Crop views of a synthetic set to MegaDepth's aspects in place, image
+    and depth alike: view 1 of every scene to 3:2 landscape (the bottom
+    rows cut) and view 2 of the second scene to 2:3 portrait (the right
+    columns cut).  A bottom or right crop keeps K and the pose.  Padded
+    back to ``size``^2, each such view leaves a third of its coarse cells
+    invalid."""
+    import cv2
+    import numpy as np
+    keep = size * 2 // 3
+    for i, npz in enumerate(npzs):
+        info = np.load(npz, allow_pickle=True)
+        views = [(1, np.s_[:keep, :])]
+        if i == 1:
+            views.append((2, np.s_[:, :keep]))
+        for v, sl in views:
+            ip = os.path.join(root, info["image_paths"][v])
+            cv2.imwrite(ip, cv2.imread(ip, cv2.IMREAD_UNCHANGED)[sl])
+            dp = os.path.join(root, info["depth_paths"][v])
+            np.save(dp, np.load(dp)[sl])
+
+
+def eval_kernel_checks(dev, log, mask0, mask1, n_windows):
+    """Phase 10's kernels against their plain versions at the shapes the
+    evaluation path gives them: kernel A's packed self layer [2, L, 256]
+    and a cross layer [1, L, 256], and kernel B at L = S, each with the
+    padding masks of one evaluated pair (``mask0``, ``mask1``: flattened
+    coarse masks, numpy bool [L]); kernel C at ``n_windows`` window pairs
+    (max_matches).  Phase 2's inputs, weights and tolerances."""
+    import numpy as np
+    from loftr_tpu_torch.models.fused_fine import encoder_weights
+    from loftr_tpu_torch.models.transformer import LoFTREncoderLayer
+    from loftr_tpu_torch.utils.weights import init_weights
+
+    def enc(c, seed):
+        layer = init_weights(LoFTREncoderLayer(c, 8), seed).to(dev)
+        return encoder_weights(layer)
+
+    rng = np.random.RandomState(10)
+    L, C, Cf = mask0.size, 256, 128
+    m0, m1 = mask0[None], mask1[None]
+    m01 = np.concatenate([m0, m1])
+    wA = enc(C, 1)
+    check_coarse(dev, log, wA, f"self_B2_L{L}_padded",
+                 rng.randn(2, L, C) * 0.5, None, m01, m01, phase=10)
+    check_coarse(dev, log, wA, f"cross_B1_L{L}_padded",
+                 rng.randn(1, L, C) * 0.5, rng.randn(1, L, C) * 0.5, m0, m1,
+                 phase=10)
+    # correspondences planted between valid cells, as phase 2 plants them
+    f0 = rng.randn(1, L, C).astype(np.float32)
+    f1 = rng.randn(1, L, C).astype(np.float32)
+    v0, v1 = np.nonzero(mask0)[0], np.nonzero(mask1)[0]
+    n = min(len(v0), len(v1)) // 12
+    f1[0, rng.permutation(v1)[:n]] = (f0[0, rng.permutation(v0)[:n]]
+                                      + 0.1 * rng.randn(n, C))
+    check_dual(dev, log, f"B1_L{L}_S{L}_padded", f0, f1, m0, m1, phase=10)
+    check_fine(dev, log, enc(Cf, 2), enc(Cf, 3),
+               rng.randn(n_windows, 25, Cf) * 0.5,
+               rng.randn(n_windows, 25, Cf) * 0.5, phase=10)
+
+
+def eval_path(dev, log, smi, n_scenes=2, n_views=3, size=840):
+    """Phase 10: the evaluation path on synthetic MegaDepth scenes at
+    ``size`` px with full-width ``outdoor_ds`` in bf16 and random weights
+    (thr 0 so that matches exist), some views cropped to MegaDepth's
+    aspects so that the padding masks are partial:
+    ``loftr_tpu_torch.test.main`` with every pose solver, the launch counts
+    of its ``batched`` run, kernels A, B and C against their plain versions
+    at that run's shapes and masks, the device
+    solvers on exact correspondences (with and without 30% outliers)
+    against the ground-truth pose, the card's epipolar errors against the
+    CPU's, and timings.  Returns the launch counts of the main path."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from loftr_tpu_torch import test as cli
+    from loftr_tpu_torch.config import get_config
+    from loftr_tpu_torch.data import DataLoader, MegaDepthDataset
+    from loftr_tpu_torch.data.sampler import ConcatDataset
+    from loftr_tpu_torch.data.synthetic import make_synthetic_megadepth
+    from loftr_tpu_torch.eval import ransac
+    from loftr_tpu_torch.eval.evaluator import Evaluator
+    from loftr_tpu_torch.eval.five_point import estimate_pose_5pt
+    from loftr_tpu_torch.eval.metrics import (essential_from_pose,
+                                              relative_pose_error,
+                                              symmetric_epipolar_distance)
+    from loftr_tpu_torch.eval.pose import estimate_pose_opencv
+    from loftr_tpu_torch.models.matcher import LoFTR
+    from loftr_tpu_torch.native import estimate_pose_native
+    from loftr_tpu_torch.utils.weights import init_weights
+
+    root = tempfile.mkdtemp(prefix="loftr_eval_")
+    try:
+        t0 = time.perf_counter()
+        # .npy depth: the card's machine has no h5py, so its .h5 read is
+        # not covered here
+        npzs = make_synthetic_megadepth(root, n_scenes=n_scenes,
+                                        n_views=n_views, img_size=size,
+                                        seed=0, depth_format="npy")
+        crop_views(root, npzs, size)
+        write_s = time.perf_counter() - t0
+        n_pairs = sum(len(np.load(p, allow_pickle=True)["pair_infos"])
+                      for p in npzs)
+        args = ["--preset", "outdoor_ds", "--dataset", "megadepth",
+                "--data-root", root, "--npz-root",
+                os.path.join(root, "index"), "--img-resize", str(size),
+                "--dtype", "bfloat16", "--thr", "0", "--num-workers", "4"]
+
+        # the CLI, once with each solver; the batched run is the main path
+        main_counts, cli_runs = None, {}
+        for solver in EVAL_SOLVERS:
+            torch.cuda.synchronize()
+            if solver == "batched":
+                reset_counts()
+            t = time.perf_counter()
+            agg = cli.main(args + ["--pose-solver", solver])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            if solver == "batched":
+                main_counts = read_counts()
+            check(set(agg) == EVAL_KEYS and all(
+                np.isfinite(v) for v in agg.values()),
+                f"test.main with {solver}: {agg}")
+            cli_runs[solver] = {"metrics": agg, "wall_s": wall}
+        emit({"phase": 10, "main_path": "python -m loftr_tpu_torch.test "
+              f"outdoor_ds bf16 megadepth {size}px --pose-solver batched",
+              "pairs": n_pairs, "launches": main_counts,
+              "write_data_s": write_s, "cli": cli_runs}, log)
+        expect_counts(main_counts, coarse_layer=12 * n_pairs,
+                      dual_softmax=n_pairs, fine_stage=n_pairs)
+
+        # timings on batches in memory: model + epipolar errors + solver
+        cfg = get_config("outdoor_ds", {
+            "loftr": {"dtype": "bfloat16",
+                      "match_coarse": {"thr": 0.0, "max_matches": 2048}},
+            "trainer": {"epi_err_thr": 1e-4}})
+        model = init_weights(LoFTR(cfg.loftr), 0)
+        dss = [MegaDepthDataset(root, p, mode="test", img_resize=size, df=8,
+                                img_padding=True) for p in npzs]
+        batches = list(DataLoader(ConcatDataset(dss), 1, num_workers=4,
+                                  drop_last=False))
+        # the padding masks the CLI's runs gave kernels A and B (the same
+        # dataset); the pair with the fewest valid cells is checked below
+        masks = [(b[0].mask0.reshape(-1).numpy(),
+                  b[0].mask1.reshape(-1).numpy()) for b in batches]
+        valid_share = [[float(m.mean()) for m in pair] for pair in masks]
+        emit({"phase": 10, "coarse_mask_valid_share": valid_share}, log)
+        check(any(min(v) < 1.0 for v in valid_share),
+              f"every coarse mask of the eval set is all valid: "
+              f"{valid_share}")
+        with torch.no_grad():
+            eval_kernel_checks(dev, log, *min(masks, key=lambda m: sum(
+                x.sum() for x in m)), cfg.loftr.match_coarse.max_matches)
+        timing = {}
+        for solver in EVAL_SOLVERS:
+            ev = Evaluator(cfg, model, pose_solver=solver, device=dev)
+            ev.evaluate_batches(batches[:1])                   # warm-up
+            t = time.perf_counter()
+            ev.evaluate_batches(batches)
+            wall = time.perf_counter() - t
+            n = ev.timing["pairs"]
+            timing[solver] = {
+                "pairs_per_s": n / wall,
+                "model_and_epipolar_ms_per_pair":
+                    1e3 * ev.timing["model_s"] / n,
+                "solver_ms_per_pair": 1e3 * ev.timing["pose_s"] / n}
+        inp = batches[0][0].to(dev)
+        with torch.inference_mode():
+            res = model.to(dev)(inp)
+            model_ms = cuda_ms(lambda: model(inp), iters=5)
+            n_valid = int(res.valid.sum())
+            # the card's epipolar errors against the CPU's, same inputs
+            args_e = [res.mkpts0_f.float(), res.mkpts1_f.float(),
+                      essential_from_pose(inp.T_0to1), inp.K0, inp.K1]
+            epi_d = symmetric_epipolar_distance(*args_e).cpu().numpy()
+            epi_c = symmetric_epipolar_distance(
+                *[a.cpu() for a in args_e]).numpy()
+        v = res.valid.cpu().numpy()
+        rel = np.abs(epi_d - epi_c) / np.maximum(np.abs(epi_c), 1e-30)
+        epi_ok = bool(np.allclose(epi_d, epi_c, rtol=1e-5, atol=1e-12))
+        emit({"phase": 10, "nvidia_smi": smi, "model_ms_B1": model_ms,
+              "n_valid": n_valid, "eval": timing,
+              "epipolar_card_vs_cpu": {
+                  "max_rel": float(rel.max()),
+                  "max_rel_valid": float(rel[v].max()) if v.any() else 0.0,
+                  "equal_share": float((epi_d == epi_c).mean()),
+                  "rtol": 1e-5, "ok": epi_ok}}, log)
+        check(epi_ok, "card and CPU epipolar errors differ beyond rtol 1e-5")
+        check(n_valid > 0, "the eval forward found no matches")
+
+        # exact correspondences: device solvers within 0.1 deg of the
+        # ground truth, the host solvers as a cross-check
+        item = MegaDepthDataset(root, npzs[0], mode="val")[0]
+        T = item["T_0to1"].astype(np.float64)
+        K0, K1 = item["K0"], item["K1"]
+        rng = np.random.RandomState(0)
+        exact = {}
+        for frac in (0.0, 0.3):
+            k0, k1 = exact_matches(item, 500, frac, rng)
+            row = {}
+            for solver, H in (("8pt", 1024), ("5pt", 128)):
+                name = "batched" if solver == "8pt" else "batched5pt"
+                tk = [torch.from_numpy(a)[None].to(dev)
+                      for a in (k0, k1, K0, K1)]
+                valid = torch.ones(1, len(k0), dtype=torch.bool,
+                                   device=dev)
+
+                def run():
+                    return ransac.estimate_pose_ransac(
+                        *tk, valid, pixel_thr=0.5, num_hypotheses=H,
+                        solver=solver,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+                with torch.inference_mode():
+                    est = run()
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    for _ in range(3):
+                        run()
+                    torch.cuda.synchronize()
+                    ms = 1e3 * (time.perf_counter() - t) / 3
+                    dms = (device_ms(run, iters=3) or {}).get("total")
+                R, tv = (est.R[0].double().cpu().numpy(),
+                         est.t[0].double().cpu().numpy())
+                row[name] = dict(zip(("R_err_deg", "t_err_deg"),
+                                     pose_angles(T, R, tv)))
+                row[name].update(
+                    dict(zip(("t_err_metric_deg", "R_err_metric_deg"),
+                             relative_pose_error(T, R, tv))),
+                    inliers=int(est.num_inliers[0]), ms=ms, device_ms=dms)
+            host = {
+                "opencv": lambda: estimate_pose_opencv(
+                    k0.astype(np.float64), k1.astype(np.float64),
+                    K0.astype(np.float64), K1.astype(np.float64), 0.5),
+                "native": lambda: estimate_pose_native(k0, k1, K0, K1, 0.5),
+                "5pt": lambda: estimate_pose_5pt(k0, k1, K0, K1, 0.5)}
+            for name, fn in host.items():
+                t = time.perf_counter()
+                ret = fn()
+                ms = 1e3 * (time.perf_counter() - t)
+                check(ret is not None, f"{name} found no pose")
+                row[name] = dict(zip(("R_err_deg", "t_err_deg"),
+                                     pose_angles(T, ret[0], ret[1])))
+                row[name].update(
+                    dict(zip(("t_err_metric_deg", "R_err_metric_deg"),
+                             relative_pose_error(T, ret[0], ret[1]))),
+                    inliers=int(ret[2].sum()), ms=ms)
+            exact[f"outliers_{frac}"] = row
+        emit({"phase": 10, "exact_correspondences": 500, "pose": exact},
+             log)
+        for frac, row in exact.items():
+            for name, r in row.items():
+                bar = 0.1 if name.startswith("batched") else 2.0
+                check(r["R_err_deg"] < bar and r["t_err_deg"] < bar,
+                      f"{name} with {frac}: {r} (bar {bar} deg)")
+        return main_counts
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10")
     ap.add_argument("--out", default=None,
                     help="also append the JSON lines to this file")
     args = ap.parse_args(argv)
@@ -2000,6 +2356,8 @@ def main(argv=None):
             train_counts = train_bf16(dev, log)
         if 9 in phases:
             train_ot(dev, log)
+        if 10 in phases:
+            eval_path(dev, log, smi)
         if results and None not in (main_counts, train_counts, ot_counts):
             pal = "loftr_tpu/ops/pallas/"
             src = {"coarse_layer": ("coarse_layer.cu", "coarse_layer.py:117"),

@@ -296,3 +296,50 @@ def get_config(name: str = "default", overrides: Mapping[str, Any] | None = None
     if overrides:
         cfg = cfg.replaced(overrides)
     return cfg
+
+
+def load_config_file(path: str) -> dict:
+    """Read one nested-override dict from a .json / .yaml / .yml file.
+
+    The file may name a base preset with a top-level ``"preset": "<name>"``
+    key, which :func:`get_config_from_files` consumes.
+    """
+    import json
+
+    with open(path) as f:
+        if path.endswith((".yaml", ".yml")):
+            import yaml
+            data = yaml.safe_load(f)
+        elif path.endswith(".json"):
+            data = json.load(f)
+        else:
+            raise ValueError(f"unknown config format: {path} "
+                             "(expected .json/.yaml/.yml)")
+    if not isinstance(data, Mapping):
+        raise ValueError(f"{path}: top level must be a mapping")
+    return dict(data)
+
+
+def get_config_from_files(*paths: str, preset: str | None = None,
+                          overrides: Mapping[str, Any] | None = None,
+                          fallback: str = "default") -> Config:
+    """Multi-file config with the reference's merge precedence
+    (train.py:63-65; configs/data/base.py:1-4): preset defaults, then each
+    file in argument order (later files win), then ``overrides`` last.
+
+    A file may set ``preset: <name>`` to select the base preset (the last
+    file that names one wins); the ``preset`` argument wins over files.
+    """
+    dicts = [load_config_file(p) for p in paths]
+    base = preset
+    if base is None:
+        for d in dicts:
+            base = d.get("preset", base)
+    cfg = PRESETS[base or fallback]()
+    for d in dicts:
+        d = {k: v for k, v in d.items() if k != "preset"}
+        if d:
+            cfg = cfg.replaced(d)
+    if overrides:
+        cfg = cfg.replaced(overrides)
+    return cfg

@@ -56,7 +56,8 @@ class CheckpointManager:
             with open(index) as f:
                 self._metrics = {int(k): v for k, v in json.load(f).items()}
 
-    def _path(self, step: int) -> str:
+    def path(self, step: int) -> str:
+        """The file of checkpoint ``step``."""
         return os.path.join(self.directory, f"step_{step:08d}.pt")
 
     def _score(self, step: int) -> float:
@@ -67,9 +68,9 @@ class CheckpointManager:
 
     def save(self, step: int, state: TrainState,
              metrics: Optional[dict] = None) -> None:
-        tmp = self._path(step) + ".tmp"
+        tmp = self.path(step) + ".tmp"
         torch.save(_state_payload(state), tmp)
-        os.replace(tmp, self._path(step))
+        os.replace(tmp, self.path(step))
         self._metrics[step] = (metrics or {}).get(self.monitor)
         # keep the best save_top_k (ties: the later step)
         keep = sorted(self._metrics, key=lambda s: (self._score(s), s),
@@ -77,8 +78,8 @@ class CheckpointManager:
         for s in list(self._metrics):
             if s not in keep:
                 del self._metrics[s]
-                if os.path.exists(self._path(s)):
-                    os.remove(self._path(s))
+                if os.path.exists(self.path(s)):
+                    os.remove(self.path(s))
         with open(os.path.join(self.directory, _INDEX), "w") as f:
             json.dump({str(k): v for k, v in self._metrics.items()}, f)
 
@@ -90,7 +91,7 @@ class CheckpointManager:
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
         dev = next(state.module.parameters()).device
-        payload = torch.load(self._path(step), map_location=dev,
+        payload = torch.load(self.path(step), map_location=dev,
                              weights_only=False)
         return _load_payload(state, payload)
 

@@ -52,7 +52,8 @@ class Trainer:
         if world_size > 1:
             raise NotImplementedError(
                 "Trainer(world_size > 1): data-parallel training waits for "
-                "the parallel modules (ROADMAP.md queue 1 item 13)")
+                "the parallel modules (ROADMAP.md, the parallel item of "
+                "queue 1)")
         self.config = config
         self.device = resolve_device(device)
         self.true_lr, self.warmup_step = config.scaled_lr(

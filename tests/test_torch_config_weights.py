@@ -143,7 +143,14 @@ def test_import_leaves_jax_out():
             "loftr_tpu_torch.ops.fine_stage_hybrid, loftr_tpu_torch.losses, "
             "loftr_tpu_torch.supervision, loftr_tpu_torch.train.optim, "
             "loftr_tpu_torch.train.trainer, "
-            "loftr_tpu_torch.train.checkpoint\n"
+            "loftr_tpu_torch.train.checkpoint, loftr_tpu_torch.data, "
+            "loftr_tpu_torch.data.augment, loftr_tpu_torch.data.io, "
+            "loftr_tpu_torch.data.synthetic, loftr_tpu_torch.eval.metrics, "
+            "loftr_tpu_torch.eval.pose, loftr_tpu_torch.eval.five_point, "
+            "loftr_tpu_torch.eval.five_point_batched, "
+            "loftr_tpu_torch.eval.ransac, loftr_tpu_torch.eval.evaluator, "
+            "loftr_tpu_torch.native, loftr_tpu_torch.test, "
+            "loftr_tpu_torch.utils.plotting\n"
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "
             "'orbax', 'loftr_tpu') or m.startswith(('jax.', 'flax.', "
             "'optax.', 'orbax.', 'loftr_tpu.'))]\n"
@@ -188,7 +195,9 @@ def test_no_jax_imports_in_port_sources(root):
                 "ops/kernels/focal_loss.py", "ops/fine_stage_hybrid.py",
                 "ops/sinkhorn.py", "ops/kernels/sinkhorn.py",
                 "ops/kernels/window_attention.py",
-                "ops/kernels/upsample.py"} <= names
+                "ops/kernels/upsample.py", "eval/evaluator.py",
+                "eval/ransac.py", "eval/five_point_batched.py",
+                "data/loader.py", "native.py", "test.py"} <= names
 
 
 def test_load_matcher_default_device_needs_cuda(monkeypatch):

@@ -121,5 +121,5 @@ def test_clip_by_global_norm_is_optax_form():
 
 
 def test_trainer_world_size_gt_1_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="the parallel item"):
         Trainer(get_config("indoor_ds"), world_size=2, device="cpu")
