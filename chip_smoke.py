@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``loftr_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10] [--out FILE]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11] [--out FILE]
 
 Phases, each of which must pass (any failure exits non-zero):
   1. environment: card name and power limit, versions, kernel build time
@@ -67,12 +67,30 @@ Phases, each of which must pass (any failure exits non-zero):
      correspondences, also with 30% of them random (the host solvers
      within 2 deg, a cross-check); the card's epipolar errors against the
      CPU's (rtol 1e-5); eval pairs/s, the model call's ms and each
-     solver's ms per pair.
+     solver's ms per pair;
+ 11. the training CLI: ``loftr_tpu_torch.train.cli.main`` in-process with
+     full-width ``outdoor_ds`` in bfloat16 at 840 px (B=1) on synthetic
+     MegaDepth scenes, some views cropped to 3:2 and 2:3 (partial padding
+     masks in its steps), 2 epochs of 4 steps with validation (batched
+     solver, one figure where ``matplotlib`` is present) and checkpoints
+     each epoch: finite losses, the val keys, ``auc@10`` in the checkpoint
+     index, kernels A, B, C and D launched; kernel D against its plain
+     version at [1, 11025, 256] with K = 3307 planted ground-truth cells
+     and 3:2 against 2:3 padding masks, forward and backward, float32 and
+     bf16;
+     ``--resume`` loads the saved tensors bit for bit and continues from the
+     saved step; ms/step from the logger and from CUDA events around
+     ``Trainer.train_step``, val pairs/s, checkpoint size and save time,
+     peak memory; then the short accuracy smoke (``synthetic_benchmark``,
+     the small model at 256 px, 300 steps): the loss falls below a quarter
+     and trained auc@20 exceeds untrained.
 Each main path (one ``match_pair`` call of each preset; the 8 training
-steps; the two switch runs; the CLI's ``batched`` run) runs with every
+steps; the two switch runs; the CLI's ``batched`` run; the train CLI's
+first run) runs with every
 kernel launch counter set to 0 just before it; the counts read just after
 it must show every kernel of that path.  ``--phases 5,6`` runs only the
-indoor_ds training, ``--phases 10`` only the evaluation path.  Results go
+indoor_ds training, ``--phases 10`` only the evaluation path, ``--phases
+11`` only the training CLI.  Results go
 to stdout one JSON object per line; the line before the last is the kernel
 summary, and the last line is the contract line ``{"ok": true, "device":
 {...}}``.  Without CUDA, or without the package beside this script, it exits
@@ -1034,14 +1052,15 @@ def window_upsample_checks(dev, log, results):
         emit({"phase": 2, "kernel": k, "timing": results[k]}, log)
 
 
-def focal_case(rng, B, L, C, n_gt, S=None, n_alike=1500):
+def focal_case(rng, B, L, C, n_gt, S=None, n_alike=1500, cells=None):
     """Features at a scale where the confidences of interest lie inside the
     clamp (1e-6, 1 - 1e-6): 2 n planted pairs in each image pair (sim about
     6 at any C, against N(0, 0.4) for the rest at C = 256), n = n_alike or
     fewer where L or S is small; the first n_gt[b] of them are the ground
     truth of pair b, the others look-alikes, so that negatives with a live
     gradient exist (an unrelated cell's confidence, about 4e-8, is
-    clamped).  f0 [B, L, C], f1 [B, S, C]."""
+    clamped).  ``cells``, (indices into L, indices into S), plants only
+    there (a padding mask's valid cells).  f0 [B, L, C], f1 [B, S, C]."""
     import numpy as np
     S = L if S is None else S
     n_gt = [n_gt] * B if isinstance(n_gt, int) else list(n_gt)
@@ -1049,9 +1068,10 @@ def focal_case(rng, B, L, C, n_gt, S=None, n_alike=1500):
     f1 = (rng.randn(B, S, C) * 0.77).astype(np.float32)
     gt_j = np.zeros((B, L), np.int32)
     gt_valid = np.zeros((B, L), bool)
-    n = min(n_alike, L // 2, S // 2)
+    c0, c1 = (np.arange(L), np.arange(S)) if cells is None else cells
+    n = min(n_alike, len(c0) // 2, len(c1) // 2)
     for b in range(B):
-        ii, jj = rng.permutation(L)[:2 * n], rng.permutation(S)[:2 * n]
+        ii, jj = rng.permutation(c0)[:2 * n], rng.permutation(c1)[:2 * n]
         f1[b, jj] = f0[b, ii] + 0.1 * rng.randn(2 * n, C).astype(np.float32)
         k = min(n_gt[b], n)
         gt_j[b, ii[:k]] = jj[:k]
@@ -1142,6 +1162,127 @@ def focal_bounds(B, L, S, C):
             t_bytes)
 
 
+def check_focal(dev, log, name, f0, f1, gt_j, gt_valid, m0, m1,
+                gamma=2.0, grad=True, phase=2):
+    """Kernel D (``fused_focal_sums``) against ``focal_sums_plain`` on the
+    same inputs, forward and (with ``grad``) backward under two cotangents,
+    in float32 and bf16.  f0 [B, L, C], f1 [B, S, C] float32, gt_j and
+    gt_valid [B, L], masks m0 [B, L] and m1 [B, S] bool or None: numpy.
+    Returns {dtype: the largest gradient error under the loss's cotangent}
+    (empty without ``grad``)."""
+    import numpy as np
+    import torch
+    from loftr_tpu_torch.ops.kernels import focal_loss as KD
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    B, L, C = f0.shape
+    S = f1.shape[1]
+    # tolerances.  Sums: the kernel adds L x S float terms (23 million at
+    # 4800^2) in another order than torch.sum, and a term near conf = 1
+    # carries log1p(-c) with the float rounding of c: 2e-4 relative.
+    # Gradients, float32: 1e-3 of the entry (the bar of the JAX kernels
+    # against jax.grad) plus 1e-3 of the largest entry of that pair's
+    # gradient (sums of S float products in another order).  bfloat16:
+    # both versions round the float gradient to bfloat16 at the end, so
+    # entries may differ by one ulp (2^-8).
+    tol_sum = 2e-4
+    tol_grad = {f32: (1e-3, 1e-3), bf16: (8e-3, 2e-3)}
+    errs = {}
+    gj = torch.from_numpy(gt_j).to(dev)
+    gv = torch.from_numpy(gt_valid).to(dev)
+    masked = m0 is not None
+    if masked:
+        m0, m1 = torch.from_numpy(m0).to(dev), torch.from_numpy(m1).to(dev)
+    count = gt_valid.sum(1)
+    # cotangents, one pair of them per image pair: the loss's own
+    # (1/n_pos, 1/n_neg), where the positives dominate, scaled apart
+    # between the pairs; and the negatives alone
+    sc = torch.arange(1, B + 1, dtype=torch.float32, device=dev)
+    c_pos = (1.5 - 0.5 * sc) / torch.from_numpy(
+        np.maximum(count, 1)).to(dev)
+    c_neg = sc / torch.from_numpy(L * S - count).to(dev)
+    c_neg_only = 2.0 * sc - 1.0
+    has_pos = torch.from_numpy(count > 0).to(dev)
+    for dt in (f32, bf16):
+        out = {}
+        for which, fn in (("kernel", KD.fused_focal_sums),
+                          ("plain", KD.focal_sums_plain)):
+            a = torch.from_numpy(f0).to(dev, dt).requires_grad_(grad)
+            b = torch.from_numpy(f1).to(dev, dt).requires_grad_(grad)
+            n0 = KD.fused_focal_sums.launches
+            with torch.set_grad_enabled(grad):
+                p, n = fn(a, b, gj, gv, m0, m1, 0.1, 0.25, gamma)
+            if which == "kernel":
+                check(KD.fused_focal_sums.launches == n0 + 1
+                      and p.requires_grad == grad,
+                      f"focal_loss {name}: not one kernel call")
+            if not grad:
+                out[which] = (p, n, None, None)
+                continue
+            g_loss = torch.autograd.grad(
+                (p * c_pos).sum() + (n * c_neg).sum(), (a, b),
+                retain_graph=True)
+            g_neg = torch.autograd.grad((n * c_neg_only).sum(), (a, b))
+            # [2B, L, C]: per image pair, the loss's gradient, then
+            # the negatives-only gradient
+            out[which] = (p.detach(), n.detach(),
+                          torch.cat([g_loss[0], g_neg[0]]),
+                          torch.cat([g_loss[1], g_neg[1]]))
+            del a, b, p, n, g_loss, g_neg
+        torch.cuda.synchronize()
+        (kp, kn, ka, kb), (pp, pn, pa, pb) = out["kernel"], out["plain"]
+
+        def rel(x, y):    # per image pair, the worst
+            return float(((x - y).abs() / y.abs().clamp_min(1e-30)).max())
+        rtol, ftol = tol_grad[dt]
+
+        def grad_ok(x, y):
+            # each pair's gradient under each cotangent against its
+            # own largest entry
+            return all(bool(((u - v).abs() <= rtol * v.abs()
+                             + ftol * v.abs().max()).all())
+                       for u, v in zip(x.float(), y.float()))
+
+        def gerr(x, y, sl):
+            return float((x.float() - y.float())[sl].abs().max())
+        pos_err = rel(kp[has_pos], pp[has_pos]) if bool(has_pos.any()) \
+            else 0.0
+        ok = (rel(kn, pn) <= tol_sum and pos_err <= tol_sum
+              and bool((kp[~has_pos] == 0).all())
+              and bool((pp[~has_pos] == 0).all()))
+        rec = {"phase": phase, "kernel": "focal_loss", "case": name,
+               "batch": B, "L": L, "S": S, "C": C, "gamma": gamma,
+               "masked": masked, "gradient": grad,
+               "n_gt": count.tolist(),
+               "dtype": str(dt)[6:], "pos": kp.tolist(),
+               "neg": kn.tolist(), "pos_rel_err": pos_err,
+               "neg_rel_err": rel(kn, pn), "sum_rtol": tol_sum}
+        if grad:
+            ok = (ok and grad_ok(ka, pa) and grad_ok(kb, pb)
+                  and bool(torch.isfinite(ka.float()).all())
+                  and bool(torch.isfinite(kb.float()).all()))
+            lo, hi = slice(0, B), slice(B, 2 * B)
+            rec.update({
+                "dfeat0_max_abs_err": gerr(ka, pa, lo),
+                "dfeat0_max_abs": float(pa.float()[lo].abs().max()),
+                "dfeat1_max_abs_err": gerr(kb, pb, lo),
+                "dfeat1_max_abs": float(pb.float()[lo].abs().max()),
+                "neg_only_dfeat0_max_abs_err": gerr(ka, pa, hi),
+                "neg_only_dfeat0_max_abs": float(
+                    pa.float()[hi].abs().max()),
+                "neg_only_dfeat1_max_abs_err": gerr(kb, pb, hi),
+                "neg_only_dfeat1_max_abs": float(
+                    pb.float()[hi].abs().max()),
+                "grad_rtol": rtol, "grad_tol_of_max": ftol})
+            errs[dt] = max(rec["dfeat0_max_abs_err"],
+                           rec["dfeat1_max_abs_err"])
+        rec["ok"] = ok
+        emit(rec, log)
+        check(ok, f"focal_loss {name} {dt} disagrees: {rec}")
+        del out, ka, kb, pa, pb
+    return errs
+
+
 def train_kernel_checks(dev, log, results):
     """Kernel D (focal loss, forward and backward) and the hybrid fine
     stage's backward, against their plain versions on the card."""
@@ -1157,16 +1298,6 @@ def train_kernel_checks(dev, log, results):
     rng = np.random.RandomState(7)
     f32, bf16 = torch.float32, torch.bfloat16
     L0 = (H // 8) * (W // 8)
-    # tolerances.  Sums: the kernel adds 23 million float terms in another
-    # order than torch.sum, and a term near conf = 1 carries log1p(-c)
-    # with the float rounding of c: 2e-4 relative.  Gradients, float32:
-    # 1e-3 of the entry (the bar of the JAX kernels against jax.grad) plus
-    # 1e-3 of the largest entry of that pair's gradient (sums of 4800 float
-    # products in another order).  bfloat16: both versions round the float
-    # gradient to bfloat16 at the end, so entries may differ by one ulp
-    # (2^-8).
-    tol_sum = 2e-4
-    tol_grad = {f32: (1e-3, 1e-3), bf16: (8e-3, 2e-3)}
     errD = {}
     # (name, B, L, S, C, planted ground truth per pair, masked, gamma,
     # gradient).  The first four at B=2, the training main path's batch,
@@ -1190,98 +1321,11 @@ def train_kernel_checks(dev, log, results):
              ("no_grad", 2, L0, L0, 256, (1500, 900), True, 2.0, False))
     for name, B, L, S, C, n_gt, masked, gamma, grad in cases:
         f0, f1, gt_j, gt_valid = focal_case(rng, B, L, C, n_gt, S)
-        gj = torch.from_numpy(gt_j).to(dev)
-        gv = torch.from_numpy(gt_valid).to(dev)
-        m0 = torch.from_numpy(rng.rand(B, L) > 0.1).to(dev) if masked \
-            else None
-        m1 = torch.from_numpy(rng.rand(B, S) > 0.1).to(dev) if masked \
-            else None
-        count = gt_valid.sum(1)
-        # cotangents, one pair of them per image pair: the loss's own
-        # (1/n_pos, 1/n_neg), where the positives dominate, scaled apart
-        # between the pairs; and the negatives alone
-        sc = torch.arange(1, B + 1, dtype=torch.float32, device=dev)
-        c_pos = (1.5 - 0.5 * sc) / torch.from_numpy(
-            np.maximum(count, 1)).to(dev)
-        c_neg = sc / torch.from_numpy(L * S - count).to(dev)
-        c_neg_only = 2.0 * sc - 1.0
-        has_pos = torch.from_numpy(count > 0).to(dev)
-        for dt in (f32, bf16):
-            out = {}
-            for which, fn in (("kernel", KD.fused_focal_sums),
-                              ("plain", KD.focal_sums_plain)):
-                a = torch.from_numpy(f0).to(dev, dt).requires_grad_(grad)
-                b = torch.from_numpy(f1).to(dev, dt).requires_grad_(grad)
-                n0 = KD.fused_focal_sums.launches
-                with torch.set_grad_enabled(grad):
-                    p, n = fn(a, b, gj, gv, m0, m1, 0.1, 0.25, gamma)
-                if which == "kernel":
-                    check(KD.fused_focal_sums.launches == n0 + 1
-                          and p.requires_grad == grad,
-                          f"focal_loss {name}: not one kernel call")
-                if not grad:
-                    out[which] = (p, n, None, None)
-                    continue
-                g_loss = torch.autograd.grad(
-                    (p * c_pos).sum() + (n * c_neg).sum(), (a, b),
-                    retain_graph=True)
-                g_neg = torch.autograd.grad((n * c_neg_only).sum(), (a, b))
-                # [2B, L, C]: per image pair, the loss's gradient, then
-                # the negatives-only gradient
-                out[which] = (p.detach(), n.detach(),
-                              torch.cat([g_loss[0], g_neg[0]]),
-                              torch.cat([g_loss[1], g_neg[1]]))
-                del a, b, p, n, g_loss, g_neg
-            torch.cuda.synchronize()
-            (kp, kn, ka, kb), (pp, pn, pa, pb) = out["kernel"], out["plain"]
-
-            def rel(x, y):    # per image pair, the worst
-                return float(((x - y).abs() / y.abs().clamp_min(1e-30)).max())
-            rtol, ftol = tol_grad[dt]
-
-            def grad_ok(x, y):
-                # each pair's gradient under each cotangent against its
-                # own largest entry
-                return all(bool(((u - v).abs() <= rtol * v.abs()
-                                 + ftol * v.abs().max()).all())
-                           for u, v in zip(x.float(), y.float()))
-
-            def gerr(x, y, sl):
-                return float((x.float() - y.float())[sl].abs().max())
-            pos_err = rel(kp[has_pos], pp[has_pos]) if bool(has_pos.any()) \
-                else 0.0
-            ok = (rel(kn, pn) <= tol_sum and pos_err <= tol_sum
-                  and bool((kp[~has_pos] == 0).all())
-                  and bool((pp[~has_pos] == 0).all()))
-            rec = {"phase": 2, "kernel": "focal_loss", "case": name,
-                   "batch": B, "L": L, "S": S, "C": C, "gamma": gamma,
-                   "masked": masked, "gradient": grad, "n_gt": list(n_gt),
-                   "dtype": str(dt)[6:], "pos": kp.tolist(),
-                   "neg": kn.tolist(), "pos_rel_err": pos_err,
-                   "neg_rel_err": rel(kn, pn), "sum_rtol": tol_sum}
-            if grad:
-                ok = (ok and grad_ok(ka, pa) and grad_ok(kb, pb)
-                      and bool(torch.isfinite(ka.float()).all())
-                      and bool(torch.isfinite(kb.float()).all()))
-                lo, hi = slice(0, B), slice(B, 2 * B)
-                rec.update({
-                    "dfeat0_max_abs_err": gerr(ka, pa, lo),
-                    "dfeat0_max_abs": float(pa.float()[lo].abs().max()),
-                    "dfeat1_max_abs_err": gerr(kb, pb, lo),
-                    "dfeat1_max_abs": float(pb.float()[lo].abs().max()),
-                    "neg_only_dfeat0_max_abs_err": gerr(ka, pa, hi),
-                    "neg_only_dfeat0_max_abs": float(
-                        pa.float()[hi].abs().max()),
-                    "neg_only_dfeat1_max_abs_err": gerr(kb, pb, hi),
-                    "neg_only_dfeat1_max_abs": float(
-                        pb.float()[hi].abs().max()),
-                    "grad_rtol": rtol, "grad_tol_of_max": ftol})
-                errD[(name, dt)] = max(rec["dfeat0_max_abs_err"],
-                                       rec["dfeat1_max_abs_err"])
-            rec["ok"] = ok
-            emit(rec, log)
-            check(ok, f"focal_loss {name} {dt} disagrees: {rec}")
-            del out, ka, kb, pa, pb
+        m0 = rng.rand(B, L) > 0.1 if masked else None
+        m1 = rng.rand(B, S) > 0.1 if masked else None
+        for dt, err in check_focal(dev, log, name, f0, f1, gt_j, gt_valid,
+                                   m0, m1, gamma, grad).items():
+            errD[(name, dt)] = err
 
     # timing (events and profiled device time) and peak memory, bf16, at
     # B=1 (one pair) and B=2 (the training batch)
@@ -1364,33 +1408,14 @@ def train_kernel_checks(dev, log, results):
         check(ok, f"hybrid fine stage disagrees: {rec}")
 
 
-def _counters():
-    from loftr_tpu_torch.ops.kernels.coarse_layer import fused_coarse_layer
-    from loftr_tpu_torch.ops.kernels.dual_softmax import \
-        fused_dual_softmax_match
-    from loftr_tpu_torch.ops.kernels.fine_stage import fused_fine_stage
-    from loftr_tpu_torch.ops.kernels.focal_loss import fused_focal_sums
-    from loftr_tpu_torch.ops.kernels.sinkhorn import fused_sinkhorn_match
-    from loftr_tpu_torch.ops.kernels.upsample import upsample2x
-    from loftr_tpu_torch.ops.kernels.window_attention import \
-        window_linear_attention
-    return {"coarse_layer": (fused_coarse_layer, "launches"),
-            "sinkhorn": (fused_sinkhorn_match, "launches"),
-            "window_attention": (window_linear_attention, "launches"),
-            "upsample": (upsample2x, "launches"),
-            "dual_softmax": (fused_dual_softmax_match, "launches"),
-            "fine_stage": (fused_fine_stage, "launches"),
-            "focal_loss_forward": (fused_focal_sums, "launches"),
-            "focal_loss_backward": (fused_focal_sums, "backward_launches")}
-
-
 def reset_counts():
-    for fn, attr in _counters().values():
-        setattr(fn, attr, 0)
+    from loftr_tpu_torch.ops.kernels import reset_launch_counts
+    reset_launch_counts()
 
 
 def read_counts():
-    return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
+    from loftr_tpu_torch.ops.kernels import launch_counts
+    return launch_counts()
 
 
 def expect_counts(counts, **want):
@@ -2175,7 +2200,7 @@ def eval_path(dev, log, smi, n_scenes=2, n_views=3, size=840):
                 "solver_ms_per_pair": 1e3 * ev.timing["pose_s"] / n}
         inp = batches[0][0].to(dev)
         with torch.inference_mode():
-            res = model.to(dev)(inp)
+            res = model.eval().to(dev)(inp)
             model_ms = cuda_ms(lambda: model(inp), iters=5)
             n_valid = int(res.valid.sum())
             # the card's epipolar errors against the CPU's, same inputs
@@ -2266,9 +2291,300 @@ def eval_path(dev, log, smi, n_scenes=2, n_views=3, size=840):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# phase 11: the training CLI and the short accuracy smoke
+# --------------------------------------------------------------------------
+
+def focal_cli_check(dev, log, size, n_gt):
+    """Kernel D against its plain version at the train CLI's shape,
+    [1, L, 256] with L = S = (``size`` / 8)^2, ``n_gt`` planted
+    ground-truth cells and the coarse padding masks of a 3:2 landscape
+    view against a 2:3 portrait one (as ``crop_views`` writes them, padded
+    back to ``size``^2): float32 and bf16, forward and backward, at phase
+    2's tolerances."""
+    import numpy as np
+    side = size // 8
+    keep = side * 2 // 3
+    m0 = np.zeros((side, side), bool)
+    m1 = np.zeros((side, side), bool)
+    m0[:keep] = True
+    m1[:, :keep] = True
+    m0, m1 = m0.reshape(1, -1), m1.reshape(1, -1)
+    cells = (np.nonzero(m0[0])[0], np.nonzero(m1[0])[0])
+    f0, f1, gt_j, gt_valid = focal_case(
+        np.random.RandomState(11), 1, side * side, 256, n_gt,
+        n_alike=min(len(cells[0]), len(cells[1])) // 2, cells=cells)
+    check(int(gt_valid.sum()) == n_gt, f"planted {gt_valid.sum()} of {n_gt}")
+    check_focal(dev, log, f"train_cli_L{side * side}_padded", f0, f1, gt_j,
+                gt_valid, m0, m1, phase=11)
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(ln) for ln in f]
+
+
+def train_cli_path(dev, log, smi, size=840, steps_per_epoch=4):
+    """Phase 11: ``loftr_tpu_torch.train.cli.main`` in-process with
+    full-width ``outdoor_ds`` in bf16 at ``size`` px (L = S = 11025, B=1)
+    on synthetic MegaDepth scenes (2 x 4 views to train, 1 x 3 to validate,
+    ``.npy`` depth, some views cropped to MegaDepth's aspects so that the
+    padding masks are partial): 2 epochs of ``steps_per_epoch`` steps,
+    validation every epoch with the batched solver and one figure (skipped
+    where ``matplotlib`` is missing), checkpoints in a temporary directory;
+    then ``--resume`` for one more epoch, which must load the saved tensors
+    bit for bit and log the saved step + 1 first.  Kernel D against its
+    plain version at the CLI's training shape with MegaDepth's padding
+    masks (``focal_cli_check``).  Timings: ms/step from the logger's times
+    and from CUDA events around ``Trainer.train_step`` alone, val pairs/s,
+    checkpoint size and save time, peak memory.  Then the short accuracy
+    smoke:
+    ``synthetic_benchmark.main`` with the small model at 256 px (2 train
+    scenes and 1 held-out scene of 8 views, 300 steps, the untrained
+    control), whose loss must fall below a quarter and whose trained
+    auc@20 must exceed the untrained.  Returns the launch counts of the
+    first ``main`` (the main path)."""
+    import contextlib
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from loftr_tpu_torch.config import get_config
+    from loftr_tpu_torch.data import DataLoader, MegaDepthDataset
+    from loftr_tpu_torch.data.synthetic import make_synthetic_megadepth
+    from loftr_tpu_torch.eval.evaluator import Evaluator
+    from loftr_tpu_torch.tools import synthetic_benchmark as bench
+    from loftr_tpu_torch.train import cli
+    from loftr_tpu_torch.train.checkpoint import CheckpointManager
+    from loftr_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="loftr_train_")
+    saves, vals, restored, step_masks = [], [], {}, []
+    orig = (CheckpointManager.save, CheckpointManager.restore,
+            Evaluator.evaluate_dataset, Trainer.train_step)
+
+    def timed_save(self, step, state, metrics=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        orig[0](self, step, state, metrics)
+        saves.append({"step": step, "s": time.perf_counter() - t,
+                      "MiB": os.path.getsize(self.path(step)) / 2**20})
+
+    def recording_restore(self, state, step=None):
+        state = orig[1](self, state, step)
+        restored["step"] = state.step
+        restored["module"] = {k: v.detach().clone() for k, v in
+                              state.module.state_dict().items()}
+        restored["optimizer"] = copy.deepcopy(state.optimizer.state_dict())
+        return state
+
+    def timed_val(self, dataset, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = orig[2](self, dataset, **kw)
+        torch.cuda.synchronize()
+        vals.append({"pairs": self.timing["pairs"],
+                     "s": time.perf_counter() - t})
+        return out
+
+    def mask_recording_step(self, state, batch, noise=None):
+        # the share of valid coarse cells of each image of the step's pair
+        step_masks.append([float(m.float().mean())
+                           for m in (batch.mask0, batch.mask1)])
+        return orig[3](self, state, batch, noise)
+
+    CheckpointManager.save = timed_save
+    CheckpointManager.restore = recording_restore
+    Evaluator.evaluate_dataset = timed_val
+    Trainer.train_step = mask_recording_step
+    try:
+        t0 = time.perf_counter()
+        npzs = make_synthetic_megadepth(root, n_scenes=2, n_views=4,
+                                        img_size=size, seed=0,
+                                        depth_format="npy")
+        crop_views(root, npzs, size)
+        val = os.path.join(root, "val")
+        val_npz, = make_synthetic_megadepth(
+            val, n_scenes=1, n_views=3, img_size=size, seed=11,
+            scene_prefix="val", depth_format="npy")
+        crop_views(val, [val_npz], size)
+        write_s = time.perf_counter() - t0
+        n_val = len(np.load(val_npz, allow_pickle=True)["pair_infos"])
+        ck = os.path.join(root, "ckpt")
+        overrides = {"loftr": {"dtype": "bfloat16"},
+                     "trainer": {"epi_err_thr": 1e-4}}
+        args = ["--preset", "outdoor_ds", "--dataset", "megadepth",
+                "--data-root", root, "--npz-root",
+                os.path.join(root, "index"), "--list-path",
+                os.path.join(root, "index", "scene_list.txt"),
+                "--img-resize", str(size), "--batch-size", "1",
+                "--n-samples-per-subset", str(steps_per_epoch // 2),
+                "--log-every", "1", "--num-workers", "4",
+                "--val-npz-path", val_npz, "--val-data-root", val,
+                "--val-pose-solver", "batched", "--val-figures", "1",
+                "--ckpt-dir", ck, "--config-json", json.dumps(overrides)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            state = cli.main(args + ["--max-epochs", "2"])
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t
+        counts = read_counts()
+        Trainer.train_step = orig[3]
+        cli_masks = step_masks[:]
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        n_steps = 2 * steps_per_epoch
+        recs = _jsonl(os.path.join(ck, "logs", "metrics.jsonl"))
+        train_recs = [r for r in recs if "phase" not in r]
+        val_recs = [r for r in recs if r.get("phase") == "val"]
+        index = json.load(open(os.path.join(ck, "checkpoints.json")))
+        fig_dir = os.path.join(ck, "logs", "figures")
+        figures = sorted(os.listdir(fig_dir)) if os.path.isdir(fig_dir) \
+            else []
+        # ms/step from the logger's times (10 ms resolution): each epoch's
+        # first step excluded (it waits for the loader)
+        by_epoch = [[r["time"] for r in train_recs if r["epoch"] == e]
+                    for e in range(2)]
+        logger_ms = [1e3 * (ts[-1] - ts[0]) / (len(ts) - 1)
+                     for ts in by_epoch]
+        emit({"phase": 11, "main_path": "python -m loftr_tpu_torch.train "
+              f"outdoor_ds bf16 megadepth {size}px B=1, "
+              f"{n_steps} steps, val --pose-solver batched",
+              "nvidia_smi": smi, "launches": counts, "steps": state.step,
+              "losses": [r["loss"] for r in train_recs],
+              "val": val_recs, "checkpoint_index": index,
+              "figures": figures,
+              # no matplotlib on the card's machine: the CLI then skips
+              # --val-figures with a warning (the CPU tests cover figures)
+              "figures_available": bench.figures_available(),
+              "write_data_s": write_s, "main_s": main_s,
+              "logger_ms_per_step": logger_ms, "val_timing": vals,
+              "checkpoint_saves": saves, "peak_mem_MiB": peak,
+              "train_coarse_mask_valid_share": cli_masks,
+              "tf32": [torch.backends.cuda.matmul.allow_tf32,
+                       torch.backends.cudnn.allow_tf32]}, log)
+        check(len(cli_masks) == n_steps
+              and any(min(v) < 1.0 for v in cli_masks),
+              f"every coarse mask of the CLI's training steps is all valid: "
+              f"{cli_masks}")
+        check(state.step == n_steps and [r["step"] for r in train_recs]
+              == list(range(1, n_steps + 1)),
+              f"train CLI steps: {[r['step'] for r in train_recs]}")
+        check(all(np.isfinite(r["loss"]) for r in train_recs),
+              f"train CLI losses: {[r['loss'] for r in train_recs]}")
+        check(len(val_recs) == 2 and all(
+            set(r) == EVAL_KEYS | {"step", "time", "epoch", "phase"}
+            and all(np.isfinite(r[k]) for k in EVAL_KEYS)
+            for r in val_recs), f"train CLI val records: {val_recs}")
+        check(sorted(index) == [str(steps_per_epoch), str(n_steps)] and all(
+            v is not None for v in index.values()),
+              f"checkpoint index without auc@10: {index}")
+        check(len(figures) == 2 or not bench.figures_available(),
+              f"val figures: {figures}")
+        expect_counts(counts, coarse_layer=12 * 2 * n_val,
+                      dual_softmax=n_steps + 2 * n_val,
+                      fine_stage=2 * n_val, focal_loss_forward=n_steps,
+                      focal_loss_backward=n_steps)
+        mc = get_config("outdoor_ds", overrides).loftr.match_coarse
+        focal_cli_check(dev, log, size, mc.train_matches or int(
+            mc.train_coarse_percent * (size // 8) ** 2))
+
+        # --resume: the saved tensors load bit for bit, the step carries on
+        saved = torch.load(os.path.join(ck, f"step_{n_steps:08d}.pt"),
+                           map_location="cpu", weights_only=False)
+        n_before = len(recs)
+        with contextlib.redirect_stdout(sys.stderr):
+            resumed = cli.main(args + ["--resume", "--max-epochs", "1"])
+        torch.cuda.synchronize()
+        new = [r for r in _jsonl(os.path.join(ck, "logs", "metrics.jsonl"))
+               [n_before:] if "phase" not in r]
+        same_module = all(torch.equal(v.cpu(), saved["module"][k])
+                          for k, v in restored["module"].items()) and \
+            restored["module"].keys() == saved["module"].keys()
+        so, ro = saved["optimizer"]["state"], restored["optimizer"]["state"]
+        same_opt = so.keys() == ro.keys() and all(
+            torch.equal(ro[i][k].cpu(), so[i][k]) for i in so
+            for k in so[i])
+        emit({"phase": 11, "resume": {
+            "restored_step": restored["step"], "first_logged_step":
+            new[0]["step"] if new else None, "final_step": resumed.step,
+            "module_bit_equal": same_module,
+            "optimizer_bit_equal": same_opt}}, log)
+        check(restored["step"] == n_steps and new
+              and new[0]["step"] == n_steps + 1
+              and resumed.step == n_steps + steps_per_epoch,
+              "--resume did not continue from the saved step")
+        check(same_module and same_opt,
+              "--resume did not load the saved tensors bit for bit")
+
+        # Trainer.train_step alone at the same shape, CUDA events
+        cfg = get_config("outdoor_ds", overrides).replaced(
+            {"trainer": {"steps_per_epoch": steps_per_epoch}})
+        trainer = Trainer(cfg, device=dev)
+        ds = MegaDepthDataset(root, os.path.join(root, "index",
+                                                 "synth_0000.npz"),
+                              mode="train", min_overlap_score=0.0,
+                              img_resize=size, df=8, img_padding=True,
+                              depth_padding=True)
+        batch = next(iter(DataLoader(ds, 1, num_workers=1)))[0].to(dev)
+        st = trainer.init_state(0)
+        trainer.train_step(st, batch)
+        step_ms = []
+        for _ in range(3):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            trainer.train_step(st, batch)
+            b.record()
+            torch.cuda.synchronize()
+            step_ms.append(a.elapsed_time(b))
+        del st, trainer, state, resumed
+        emit({"phase": 11, "nvidia_smi": smi,
+              "train_step_ms_events": step_ms,
+              "cli_ms_per_step_logger": logger_ms,
+              "val_pairs_per_s": [v["pairs"] / v["s"] for v in vals],
+              "checkpoint_MiB": [x["MiB"] for x in saves],
+              "checkpoint_save_s": [x["s"] for x in saves],
+              "peak_mem_MiB": peak}, log)
+
+        # the short accuracy smoke (the small model; its train forward and
+        # eval take the plain matcher and fine stack, see SMALL_MODEL)
+        reset_counts()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            art = bench.main([
+                "--work-dir", os.path.join(root, "synth"),
+                "--img-size", "256", "--img-resize", "256",
+                "--train-scenes", "2", "--test-scenes", "1", "--views",
+                "8", "--steps", "300", "--batch", "4", "--eval-untrained",
+                "--depth-format", "npy", "--device", str(dev)])
+        smoke_s = time.perf_counter() - t
+        res = art["results"]
+        emit({"phase": 11, "accuracy_smoke": {
+            "train_loss_first20": art["train_loss_first20"],
+            "train_loss_last20": art["train_loss_last20"],
+            "untrained": res["untrained"], "trained": res["trained"],
+            "train_launches": read_counts(), "wall_s": smoke_s}}, log)
+        check(art["train_loss_last20"] < 0.25 * art["train_loss_first20"],
+              f"accuracy smoke: the loss did not fall below a quarter: "
+              f"{art['train_loss_first20']} -> {art['train_loss_last20']}")
+        check(res["trained"]["auc@20"] > res["untrained"]["auc@20"],
+              f"accuracy smoke: trained auc@20 {res['trained']['auc@20']} "
+              f"<= untrained {res['untrained']['auc@20']}")
+        emit({"phase": 11, "wall_s": time.perf_counter() - t_phase}, log)
+        return counts
+    finally:
+        (CheckpointManager.save, CheckpointManager.restore,
+         Evaluator.evaluate_dataset, Trainer.train_step) = orig
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11")
     ap.add_argument("--out", default=None,
                     help="also append the JSON lines to this file")
     args = ap.parse_args(argv)
@@ -2327,7 +2643,7 @@ def main(argv=None):
                 for k in ptxas["spilling_kernels"]),
                 f"a bf16 pass of {src_name} spills: {ptxas}")
         results = {}
-        main_counts = train_counts = ot_counts = None
+        main_counts = train_counts = ot_counts = cli_counts = None
         with torch.no_grad():  # the inference phases carry no graph
             if 2 in phases:
                 kernel_checks(dev, log, results)
@@ -2358,6 +2674,8 @@ def main(argv=None):
             train_ot(dev, log)
         if 10 in phases:
             eval_path(dev, log, smi)
+        if 11 in phases:
+            cli_counts = train_cli_path(dev, log, smi)
         if results and None not in (main_counts, train_counts, ot_counts):
             pal = "loftr_tpu/ops/pallas/"
             src = {"coarse_layer": ("coarse_layer.cu", "coarse_layer.py:117"),
@@ -2390,6 +2708,15 @@ def main(argv=None):
                              train_counts["focal_loss_forward"],
                          "launches_backward":
                              train_counts["focal_loss_backward"]}}
+            if cli_counts is not None:
+                # phase 11's train CLI run: B and D from its training
+                # steps, A, B and C from its validation forwards
+                cli_rows = dict(cli_counts, focal_loss=(
+                    cli_counts["focal_loss_forward"]
+                    + cli_counts["focal_loss_backward"]))
+                for name in ("coarse_layer", "dual_softmax", "fine_stage",
+                             "focal_loss"):
+                    extra.setdefault(name, {})["cli_launches"] = cli_rows[name]
             optional = ("ms_forward", "ms_backward", "peak_mem_MiB",
                         "plain_peak_mem_MiB", "ms_prefilter",
                         "ms_1024_windows", "device_ms_1024_windows",

@@ -93,9 +93,11 @@ class DataLoader:
             except Exception as e:  # surface loader errors to the consumer
                 q.put(e)
             finally:
-                q.put(None)
+                if not stop.is_set():
+                    q.put(None)
 
-        t = threading.Thread(target=producer, daemon=True)
+        t = threading.Thread(target=producer, daemon=True,
+                             name="loftr-loader")
         t.start()
         try:
             while True:
@@ -106,5 +108,13 @@ class DataLoader:
                     raise item
                 yield item
         finally:
+            # a consumer that stopped early (a preemption exit, a break)
+            # reads no more: empty the queue once, so that a put blocked on
+            # it returns; the producer then sees ``stop`` and puts no more
             stop.set()
+            while True:
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
             pool.shutdown(wait=False)

@@ -57,9 +57,11 @@ class Evaluator:
                  model: Union[torch.nn.Module, Dict[str, torch.Tensor]],
                  pose_solver: str = "opencv", num_hypotheses: int = 1024,
                  device="cuda", seed: int = 0):
-        """model: a LoFTR module (run as given, in eval mode) or a state
-        dict for ``LoFTR(config.loftr)``.  ``seed`` seeds the device
-        solvers' sampling generator.  Runs on ``device`` (CUDA unless
+        """model: a LoFTR module (each evaluation runs it in eval mode and
+        then restores the mode it had, so a training module can be
+        validated between steps) or a state dict for
+        ``LoFTR(config.loftr)``.  ``seed`` seeds the device solvers'
+        sampling generator.  Runs on ``device`` (CUDA unless
         the caller asks for the CPU)."""
         if pose_solver not in HOST_SOLVERS + DEVICE_SOLVERS:
             raise ValueError(f"unknown pose solver {pose_solver!r}")
@@ -68,7 +70,7 @@ class Evaluator:
             state = model
             model = LoFTR(config.loftr)
             model.load_state_dict(state)
-        self.model = model.eval().to(self.device)
+        self.model = model.to(self.device)
         self.config = config
         self.pose_solver = pose_solver
         self.num_hypotheses = num_hypotheses
@@ -112,6 +114,18 @@ class Evaluator:
         figures) for the first ``n_figure_pairs`` pairs, epi-error colored
         (plotting.py:112-133); closing them passes to the sink."""
         _check_single_process(1)
+        was_training = getattr(self.model, "training", None)
+        if was_training is not None:
+            self.model.eval()
+        try:
+            return self._evaluate(batches, dump_path, figure_sink,
+                                  n_figure_pairs, figure_conf_thr)
+        finally:
+            if was_training is not None:
+                self.model.train(was_training)
+
+    def _evaluate(self, batches, dump_path, figure_sink, n_figure_pairs,
+                  figure_conf_thr):
         metrics = {"identifiers": [], "R_errs": [], "t_errs": [],
                    "epi_errs": [], "n_matches": []}
         dumps = [] if dump_path else None

@@ -1,1 +1,2 @@
-"""Training: optimizer and schedule, the trainer, checkpoints."""
+"""Training: optimizer and schedule, the trainer, checkpoints, and the CLI
+(``python -m loftr_tpu_torch.train``, ``train/cli.py``)."""

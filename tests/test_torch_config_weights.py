@@ -150,7 +150,10 @@ def test_import_leaves_jax_out():
             "loftr_tpu_torch.eval.five_point_batched, "
             "loftr_tpu_torch.eval.ransac, loftr_tpu_torch.eval.evaluator, "
             "loftr_tpu_torch.native, loftr_tpu_torch.test, "
-            "loftr_tpu_torch.utils.plotting\n"
+            "loftr_tpu_torch.utils.plotting, loftr_tpu_torch.utils.logging, "
+            "loftr_tpu_torch.train.cli, "
+            "loftr_tpu_torch.tools.synthetic_benchmark, "
+            "loftr_tpu_torch.tools.seed_sweep\n"
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "
             "'orbax', 'loftr_tpu') or m.startswith(('jax.', 'flax.', "
             "'optax.', 'orbax.', 'loftr_tpu.'))]\n"
@@ -197,7 +200,9 @@ def test_no_jax_imports_in_port_sources(root):
                 "ops/kernels/window_attention.py",
                 "ops/kernels/upsample.py", "eval/evaluator.py",
                 "eval/ransac.py", "eval/five_point_batched.py",
-                "data/loader.py", "native.py", "test.py"} <= names
+                "data/loader.py", "native.py", "test.py", "train/cli.py",
+                "train/__main__.py", "utils/logging.py",
+                "tools/synthetic_benchmark.py", "tools/seed_sweep.py"} <= names
 
 
 def test_load_matcher_default_device_needs_cuda(monkeypatch):

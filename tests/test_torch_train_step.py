@@ -92,7 +92,9 @@ def build_ref(seed, preset="indoor_ds"):
         return jax.grad(loss_fn)(state.params)
     return dict(batch=batch,
                 grads=state_dict_from_jax({"params": jax.tree.map(
-                    np.asarray, grads(s0, sel[0]))}), init=_variables(s0),
+                    np.asarray, grads(s0, sel[0]))}),
+                grads2=state_dict_from_jax({"params": jax.tree.map(
+                    np.asarray, grads(s1, sel[1]))}), init=_variables(s0),
                 after=[_variables(s1), _variables(s2)],
                 scalars=[jax.tree.map(float, dict(sc1)),
                          jax.tree.map(float, dict(sc2))],
@@ -356,3 +358,54 @@ def test_eval_and_val_steps_and_mode_check(ref):
         state.module.eval()(batch, train=True)
     with pytest.raises(ValueError, match="supervision"):
         state.module.train()(batch, train=True)
+
+
+def _both(ref):
+    """For the state after a second step: each element's smaller gradient
+    of the two steps, each relative to its tensor's largest.  The state
+    carries both updates, and each has a determined sign only where its
+    step's gradient lies above the comparison's atol (the first step's
+    undetermined elements moved by a whole learning rate either way)."""
+    out = {}
+    for k, g1 in ref["grads"].items():
+        a, b = g1.abs(), ref["grads2"][k].abs()
+        out[k] = torch.minimum(a / a.max(), b / b.max())
+    return out
+
+
+@pytest.fixture(scope="module")
+def ref_sparse():
+    return build_ref(BATCH_SEED, preset="default")
+
+
+def test_sparse_default_train_step_matches_jax(ref_sparse):
+    """The ``default`` preset, the accuracy benchmark's
+    (``tools/synthetic_benchmark.py``): sparse supervision, the dual-softmax
+    confidence matrix formed with autograd and the loss on its GT cells
+    only. The selected matches exactly, every gradient at the bars of
+    test_gradients_match_jax, then two steps' scalars and state."""
+    ref = ref_sparse
+    batch = to_torch(ref["batch"])
+    trainer, state = _port_state(ref, preset="default")
+    assert trainer.config.loftr.match_coarse.sparse_spvs
+    loss, _, out = trainer.forward_loss(state, batch, ref["noise"][0])
+    assert out.conf_matrix is not None and out.feat_c0 is None
+    for name in ("i_ids", "j_ids", "mask", "gt_mask"):
+        np.testing.assert_array_equal(getattr(out.coarse, name).numpy(),
+                                      getattr(ref["coarse"], name), name)
+    names = [n for n, _ in state.module.named_parameters()]
+    assert set(names) == set(ref["grads"])
+    got = torch.autograd.grad(loss, list(state.module.parameters()))
+    for n, g in zip(names, got):
+        w = ref["grads"][n].numpy()
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-3,
+                                   atol=1e-3 * float(np.abs(w).max()),
+                                   err_msg=n)
+    trainer, state = _port_state(ref, preset="default")
+    start = {k: v.clone() for k, v in state.module.state_dict().items()}
+    for i in (0, 1):
+        state, sc = trainer.train_step(state, batch, ref["noise"][i])
+        _assert_scalars(sc, ref["scalars"][i])
+        _assert_state(state, ref["after"][i], start, sc["lr"],
+                      ref["grads"] if i == 0 else _both(ref))
+        start = state_dict_from_jax(ref["after"][i])
