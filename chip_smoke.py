@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``loftr_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11] [--out FILE]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12] [--out FILE]
 
 Phases, each of which must pass (any failure exits non-zero):
   1. environment: card name and power limit, versions, kernel build time
@@ -83,10 +83,27 @@ Phases, each of which must pass (any failure exits non-zero):
      ``Trainer.train_step``, val pairs/s, checkpoint size and save time,
      peak memory; then the short accuracy smoke (``synthetic_benchmark``,
      the small model at 256 px, 300 steps): the loss falls below a quarter
-     and trained auc@20 exceeds untrained.
+     and trained auc@20 exceeds untrained;
+ 12. the serving path, ``indoor_ds`` bf16 at its published widths with
+     seeded random weights (``thr`` 0) and BatchNorm statistics randomised
+     from a seed: the model call at 640x480, B=1 and B=8, with the batch
+     weights, folded (``fold_batchnorm``) and folded + padded
+     (``optimize_variables``), each held to the one before at the bf16
+     noise floor (the rule of ``tests/test_torch_slice_bf16.py`` from the
+     images), with model and backbone ms (events, profiler); then
+     ``MatchingService`` on the folded + padded weights, buckets (480,
+     640) and (840, 840), rungs 1, 2, 4, 8, the uint8 wire, ``warmup()``:
+     one request equal to ``match_pair`` exactly; 64 requests from 8
+     clients in uint8, RGB and float, each held to ``match_pair`` of its
+     pair by the near-tie rule, with rungs above 1 in the stats; a
+     cancelled future and a starved bucket; pairs/s, p50/p99 latency, the
+     phase split and kernel launches per request at 1, 8 and 32 clients
+     (128 requests each); one bf16 forward each of the ``group`` norm,
+     ``ResNetFPN_16_4`` and ``coarse.attention = "full"``, held to the same
+     module with ``use_pallas=False``.
 Each main path (one ``match_pair`` call of each preset; the 8 training
 steps; the two switch runs; the CLI's ``batched`` run; the train CLI's
-first run) runs with every
+first run; the service's 64 requests) runs with every
 kernel launch counter set to 0 just before it; the counts read just after
 it must show every kernel of that path.  ``--phases 5,6`` runs only the
 indoor_ds training, ``--phases 10`` only the evaluation path, ``--phases
@@ -2582,9 +2599,522 @@ def train_cli_path(dev, log, smi, size=840, steps_per_epoch=4):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# phase 12: the serving path: weight transforms, MatchingService, options
+# --------------------------------------------------------------------------
+
+def images_hw(seed, h, w):
+    """One seeded pair at (h, w), built as ``images`` builds them."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    base = rng.rand(h // 8 + 8, w // 8 + 8)
+    big = np.kron(base, np.ones((8, 8)))
+    big = (big + np.roll(big, 4, 0) + np.roll(big, 4, 1)) / 3
+    sh = np.clip(big[13:13 + h, 21:21 + w] + 0.05 * rng.randn(h, w), 0, 1)
+    return ((big[:h, :w] * 255).astype(np.uint8), (sh * 255).astype(np.uint8))
+
+
+def _match_keys(res, wc):
+    """A response's matches by (i, j) coarse cell -> mconf: mkpts0 is the
+    coarse point of cell i (scale 1), mkpts1 the coarse point of cell j
+    moved by at most half a window (2 x 2 px), so j's coordinates are the
+    nearest multiples of 8."""
+    import numpy as np
+    k0 = np.round(res["mkpts0"] / 8.0).astype(int)
+    k1 = np.round(res["mkpts1"] / 8.0).astype(int)
+    return {(int(a[1] * wc + a[0]), int(b[1] * wc + b[0])): float(c)
+            for a, b, c in zip(k0, k1, res["mconf"])}
+
+
+def hold_responses(got, want, want32, conf, wc):
+    """Responses of one pair against ``match_pair`` of that pair by the
+    near-tie rule of tests/test_torch_slice_bf16.py: the valid sets agree
+    but for cells whose top-2 gap (``rel_gap_top2`` of the pair's
+    confidence matrix, along the row or the column) is within one bf16 ulp
+    (2^-7 relative); and over all responses the mean |mconf| difference on
+    the matches both hold is no larger than the bf16 noise floor (``want``
+    against its float32 twin ``want32``).  Returns (odd matches, the
+    mconf differences, the floor's differences)."""
+    row_gap = rel_gap_top2(conf).cpu().numpy()
+    col_gap = rel_gap_top2(conf.transpose(0, 1)).cpu().numpy()
+    wm, w32 = _match_keys(want, wc), _match_keys(want32, wc)
+    odd, errs = [], []
+    for res in got:
+        gm = _match_keys(res, wc)
+        odd += [m for m in set(gm) ^ set(wm)
+                if min(row_gap[m[0]], col_gap[m[1]]) > 2.0 ** -7]
+        errs += [abs(gm[m] - wm[m]) for m in set(gm) & set(wm)]
+    floor = [abs(wm[m] - w32[m]) for m in set(wm) & set(w32)]
+    return odd, errs, floor
+
+
+def _stage_fields(model, inp):
+    """(coarse map, valid, i, j, mconf, expec_f, fine map) of one model
+    call."""
+    f = model.extract(inp)
+    out = model(inp)
+    return (f.feat_c0.float(), out.valid, out.coarse.i_ids,
+            out.coarse.j_ids, out.coarse.mconf.float(), out.expec_f.float(),
+            f.feat_f0.float())
+
+
+def _by_match(f):
+    """(b, i, j) -> (mconf, expec_f) of a model call's valid matches."""
+    import numpy as np
+    v = f[1].cpu().numpy()
+    ii, jj = f[2].cpu().numpy(), f[3].cpu().numpy()
+    conf, e = f[4].cpu().numpy(), f[5].cpu().numpy()
+    return {(b, int(ii[b, s]), int(jj[b, s])): (conf[b, s], e[b, s])
+            for b, s in zip(*np.nonzero(v))}
+
+
+def hold_model(got, want, want32):
+    """A bf16 model call against another bf16 call of the same function
+    from the same images (the kernels against the plain path): the coarse
+    map's mean difference no larger than ``want``'s to its float32 twin
+    ``want32``; on the matches the three share (as sets: near-equal mconf
+    values may trade top-K slots), ``got``'s mean mconf and expec_f errors
+    to ``want32`` within twice ``want``'s (two bf16 roundings of one
+    function, the factor tests/test_torch_slice_bf16.py gives expec_f)."""
+    import numpy as np
+    g, w, w32 = _by_match(got), _by_match(want), _by_match(want32)
+    shared = sorted(set(g) & set(w) & set(w32))
+    d = {"map_err": float((got[0] - want[0]).abs().mean()),
+         "map_floor": float((want[0] - want32[0]).abs().mean()),
+         "matches": [len(g), len(w), len(w32)], "shared": len(shared)}
+    if shared:
+        def err(a, b, i):
+            return float(np.mean([np.abs(a[m][i] - b[m][i]).mean()
+                                  for m in shared]))
+        d.update(mconf_err=err(g, w32, 0), mconf_floor=err(w, w32, 0),
+                 expec_err=err(g, w32, 1), expec_floor=err(w, w32, 1))
+    ok = (len(shared) > 0 and d["map_err"] <= d["map_floor"]
+          and d["mconf_err"] <= 2 * d["mconf_floor"]
+          and d["expec_err"] <= 2 * d["expec_floor"])
+    return ok, d
+
+
+def hold_transform(models, inp):
+    """The weight transforms keep the function.  In float32 (TF32 off), on
+    the plain matcher so that the confidence matrix exists: the folded
+    model against the batch one and the padded against the folded at
+    tests/test_folding.py's bars (backbone maps 5e-4; conf rtol 1e-3 /
+    atol 1e-4; expec_f 1e-3 on the slots both select; mkpts0_f 5e-3).  In
+    bfloat16 (the served path): folding and padding round at other places
+    than the batch model, so each model's dense backbone maps are held to
+    the float32 batch model at twice the batch bf16 model's own distance
+    to it (the factor tests/test_torch_slice_bf16.py gives expec_f).
+    Matches are compared as sets: near-equal mconf values may trade top-K
+    slots."""
+    import numpy as np
+    from loftr_tpu_torch.api import with_config
+    plain = {"dtype": "float32", "match_coarse": {"use_pallas": False},
+             "fine": {"use_pallas": False}}
+    res = {}
+    f32 = {}
+    for k, m in models.items():
+        mm = with_config(m, plain)
+        f = mm.extract(inp)
+        o = mm(inp)
+        f32[k] = (f.feat_c0, f.feat_f0, o)
+    ok = True
+    for a, b in (("folded", "batch"), ("folded_padded", "folded")):
+        (ca, fa, oa), (cb, fb, ob) = f32[a], f32[b]
+
+        def by_match(o):        # (b, i, j) -> (expec_f, mkpts0_f), valid
+            v = o.valid.cpu().numpy()
+            ii, jj = o.coarse.i_ids.cpu().numpy(), o.coarse.j_ids.cpu().numpy()
+            e, k = o.expec_f.cpu().numpy(), o.mkpts0_f.cpu().numpy()
+            return {(bb, int(ii[bb, s]), int(jj[bb, s])): (e[bb, s], k[bb, s])
+                    for bb, s in zip(*np.nonzero(v))}
+        ma, mb = by_match(oa), by_match(ob)
+        shared = set(ma) & set(mb)
+        r = {"coarse_map_excess": float(((ca - cb).abs()
+                                         - 5e-4 * cb.abs()).max()),
+             "fine_map_excess": float(((fa - fb).abs()
+                                       - 5e-4 * fb.abs()).max()),
+             "conf_excess": float(((oa.conf_matrix - ob.conf_matrix).abs()
+                                   - 1e-3 * ob.conf_matrix.abs()).max()),
+             "matches_shared": len(shared) / max(1, len(mb)),
+             "expec_f_max": max((float(np.abs(ma[m][0] - mb[m][0]).max())
+                                 for m in shared), default=None),
+             "mkpts0_f_max": max((float(np.abs(ma[m][1] - mb[m][1]).max())
+                                  for m in shared), default=None)}
+        r["ok"] = (r["coarse_map_excess"] <= 5e-4
+                   and r["fine_map_excess"] <= 5e-4
+                   and r["conf_excess"] <= 1e-4
+                   and r["matches_shared"] >= 0.9
+                   and r["expec_f_max"] <= 1e-3
+                   and r["mkpts0_f_max"] <= 5e-3)
+        res[f"f32_{a}_vs_{b}"] = r
+        ok = ok and r["ok"]
+    c32, f32b = f32["batch"][0], f32["batch"][1]
+    floor = None
+    for k, m in models.items():
+        f = m.extract(inp)
+        e = (float((f.feat_c0.float() - c32).abs().mean()),
+             float((f.feat_f0.float() - f32b).abs().mean()))
+        if k == "batch":
+            floor = e
+        res[f"bf16_{k}_to_f32"] = {"coarse_map_err": e[0],
+                                   "fine_map_err": e[1]}
+        ok = ok and e[0] <= 2 * floor[0] and e[1] <= 2 * floor[1]
+    return ok, res
+
+
+def serve_path(dev, log, hw=(H, W), hw_big=(840, 840)):
+    """Phase 12 at the buckets ``hw`` and ``hw_big``.  Returns the launch
+    counts of the service's mixed run."""
+    import threading
+    import numpy as np
+    import torch
+    from concurrent.futures import CancelledError
+    from loftr_tpu_torch.api import (load_matcher, match_pair,
+                                     optimize_variables, with_config)
+    from loftr_tpu_torch.models.matcher import LoFTR
+    from loftr_tpu_torch.config import get_config
+    from loftr_tpu_torch.serve import MatchingService
+    from loftr_tpu_torch.serve.service import _to_gray
+    from loftr_tpu_torch.structs import MatchInput
+    from loftr_tpu_torch.utils.folding import fold_batchnorm
+    from loftr_tpu_torch.utils.weights import init_weights
+
+    t_phase = time.perf_counter()
+    thr0 = {"match_coarse": {"thr": 0.0}}
+    base = load_matcher(seed=0, device=dev)
+    g = torch.Generator().manual_seed(12)
+    with torch.no_grad():
+        for m in base.backbone.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                m.running_mean.copy_(torch.randn(n, generator=g) * 0.1)
+                m.running_var.copy_(torch.rand(n, generator=g) + 0.5)
+    sd = {k: v.detach().cpu() for k, v in base.state_dict().items()}
+    weights = {"batch": sd, "folded": fold_batchnorm(sd),
+               "folded_padded": optimize_variables(sd)}
+    models = {k: with_config(load_matcher(device=dev, state_dict=v),
+                             {"dtype": "bfloat16", **thr0})
+              for k, v in weights.items()}
+    check(models["folded_padded"].config.backbone.block_dims
+          == (128, 256, 256)
+          and models["folded"].config.backbone.norm == "none",
+          "transformed weights did not set the backbone config")
+
+    # 1. transforms: batch, folded, folded + padded at B=1 and B=8
+    for B in (1, 8):
+        a, b = (np.stack(x) for x in zip(*(images_hw(5 + k, *hw)
+                                             for k in range(B))))
+        inp = MatchInput(
+            image0=torch.from_numpy(a[..., None] / np.float32(255)).to(dev),
+            image1=torch.from_numpy(b[..., None] / np.float32(255)).to(dev))
+        rec = {"phase": 12, "transforms_batch": B}
+        for name, m in models.items():
+            rec[name] = {
+                "model_ms": cuda_ms(lambda: m(inp)),
+                "backbone_ms": cuda_ms(lambda: m.extract(inp)),
+                "model_device_ms": (device_ms(lambda: m(inp)) or {}).get(
+                    "total"),
+                "backbone_device_ms": (device_ms(lambda: m.extract(inp))
+                                       or {}).get("total")}
+        if B == 1:   # the function check; B=8 adds only timings
+            rec["ok"], rec["hold"] = hold_transform(models, inp)
+        emit(rec, log)
+        check(rec.get("ok", True), f"transformed weights disagree: {rec}")
+
+    # 2. the service on the folded + padded weights
+    fast = models["folded_padded"]
+    svc = MatchingService(weights["folded_padded"], overrides={
+        "loftr": thr0}, buckets=(hw, hw_big),
+        batch_sizes=(1, 2, 4, 8), flush_ms=5.0, wire_dtype="uint8",
+        device=dev)
+    try:
+        t0 = time.perf_counter()
+        svc.warmup()
+        warm_s = time.perf_counter() - t0
+        pairs = [images_hw(20 + k, *(hw if k < 4 else hw_big))
+                 for k in range(8)]
+        oracle = [(match_pair(p0, p1, fast),
+                   match_pair(p0, p1, fast, dtype="float32"))
+                  for p0, p1 in pairs]
+        # one request through match(): rung 1, equal to match_pair exactly
+        one = svc.match(*pairs[0])
+        exact = all(np.array_equal(one[k], oracle[0][0][k]) for k in one)
+        emit({"phase": 12, "service_one_request_exact": exact,
+              "n_matches": int(one["mconf"].shape[0]),
+              "warmup_s": warm_s}, log)
+        check(exact and one["mconf"].shape[0] > 0,
+              "a rung-1 response differs from match_pair")
+
+        # 64 requests from 8 clients, two buckets, three formats
+        def fmt(img, k):
+            if k % 3 == 1:
+                return np.repeat(img[..., None], 3, axis=-1)     # RGB
+            if k % 3 == 2:
+                return img.astype(np.float32) / 255.0            # float
+            return img                                           # uint8
+        for k, (p0, p1) in enumerate(pairs):
+            for f in range(3):
+                check(np.array_equal(_to_gray(fmt(p0, f), np.uint8), p0),
+                      "a request format changes the wire image")
+        svc.stats.reset()
+        results = [None] * 64
+        torch.cuda.synchronize()
+        reset_counts()
+
+        def client(c):
+            for r in range(c, 64, 8):
+                p0, p1 = pairs[r % 8]
+                results[r] = svc.submit(fmt(p0, r), fmt(p1, r // 3)
+                                        ).result(timeout=300)
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        torch.cuda.synchronize()
+        serve_counts = read_counts()
+        snap = svc.stats.snapshot()
+        # each response against the direct model call on its pair at its
+        # rung (the pair in every row): equal exactly at one rung, since a
+        # batch row's outputs depend on the batch's shape, not on the
+        # other rows; and against match_pair (rung 1) by the near-tie rule
+        plain = with_config(fast, {"match_coarse": {"use_pallas": False}})
+        held, rung_of, cross = {}, [None] * 64, {}
+        for k, (p0, p1) in enumerate(pairs):
+            direct = {}
+            for n in svc.batch_sizes:
+                inp = MatchInput(
+                    image0=torch.from_numpy(np.repeat(
+                        p0[None, :, :, None], n, 0) / np.float32(255)).to(dev),
+                    image1=torch.from_numpy(np.repeat(
+                        p1[None, :, :, None], n, 0) / np.float32(255)).to(dev))
+                out = fast(inp)
+                keep = out.valid[0].cpu().numpy()
+                direct[n] = {
+                    "mkpts0": out.mkpts0_f[0].float().cpu().numpy()[keep],
+                    "mkpts1": out.mkpts1_f[0].float().cpu().numpy()[keep],
+                    "mconf": out.coarse.mconf[0].float().cpu().numpy()[keep]}
+                if k in (0, 4):      # the backbone across rungs, per bucket
+                    f = fast.extract(inp).feat_c0[0].float()
+                    name = "small" if k == 0 else "big"
+                    if n == 1:
+                        f1 = f
+                        f32 = with_config(fast, {"dtype": "float32"}).extract(
+                            inp).feat_c0[0].float()
+                        cross[name] = {"bf16_to_f32_mean_abs_diff": float(
+                            (f1 - f32).abs().mean())}
+                    d = (f - f1).abs()
+                    cross[name][n] = {
+                        "coarse_map_max_abs_diff": float(d.max()),
+                        "coarse_map_mean_abs_diff": float(d.mean()),
+                        "share_differing": float((d > 0).float().mean())}
+                if n == 1:
+                    inp1 = inp
+            check(all(np.array_equal(direct[1][x], oracle[k][0][x])
+                      for x in direct[1]),
+                  "the direct B=1 call differs from match_pair")
+            for r in range(k, 64, 8):
+                rung_of[r] = next((n for n in svc.batch_sizes if all(
+                    np.array_equal(results[r][x], direct[n][x])
+                    for x in direct[n])), None)
+            conf = plain(inp1).conf_matrix[0].float()
+            held[k] = hold_responses([results[r] for r in range(k, 64, 8)],
+                                     *oracle[k], conf, p0.shape[1] // 8)
+            del conf
+        by_bucket = {}
+        for name, ks in (("small", range(4)), ("big", range(4, 8))):
+            errs = [e for k in ks for e in held[k][1]]
+            floor = [e for k in ks for e in held[k][2]]
+            rs = [r for r in range(64) if r % 8 in ks]
+            by_bucket[name] = {
+                "rungs": {str(n): sum(rung_of[r] == n for r in rs)
+                          for n in svc.batch_sizes},
+                "exact_at_its_rung": sum(rung_of[r] is not None for r in rs),
+                "odd_matches": sum(len(held[k][0]) for k in ks),
+                "matches_both": len(errs),
+                "mconf_err": float(np.mean(errs)) if errs else None,
+                "mconf_floor": float(np.mean(floor)) if floor else None,
+                "backbone_across_rungs": cross[name]}
+            b = by_bucket[name]
+            # where the backbone gives every rung the same bits, the
+            # responses meet the near-tie rule against match_pair; where
+            # cuDNN takes another algorithm at another batch size, the
+            # rungs are two bf16 roundings of one function, held as
+            # tests/test_torch_slice_bf16.py holds two from the images:
+            # maps no further apart than bf16 from float32, mconf within
+            # the floor (the random network's match set follows the maps)
+            rungs = [v for n, v in cross[name].items() if n != 1
+                     and isinstance(v, dict)]
+            b["same_bits_across_rungs"] = all(
+                v["coarse_map_max_abs_diff"] == 0.0 for v in rungs)
+            b["mconf_within_floor"] = (b["matches_both"] > 0
+                                       and b["mconf_err"] <= b["mconf_floor"])
+            b["near_tie_rule"] = b["odd_matches"] == 0 and b["mconf_within_floor"]
+            b["maps_within_floor"] = all(
+                v["coarse_map_mean_abs_diff"]
+                <= cross[name]["bf16_to_f32_mean_abs_diff"] for v in rungs)
+        rec = {"phase": 12, "main_path": "MatchingService 64 requests, 8 "
+               "clients, two buckets, uint8/RGB/float",
+               "buckets": [list(hw), list(hw_big)],
+               "launches": serve_counts, "stats": snap,
+               "rungs_above_1": sorted(k for k in snap["batch_hist"]
+                                       if k > 1),
+               "held": by_bucket}
+        emit(rec, log)
+        check(all(n is not None for n in rung_of),
+              f"a response equals the direct call at no rung: {by_bucket}")
+        check(all(b["near_tie_rule"] or (
+            not b["same_bits_across_rungs"] and b["maps_within_floor"]
+            and b["mconf_within_floor"]) for b in by_bucket.values()),
+              f"service responses disagree with match_pair: {by_bucket}")
+        check(rec["rungs_above_1"], "the service never batched above 1")
+        check(min(serve_counts[k] for k in ("coarse_layer", "dual_softmax",
+                                            "fine_stage")) > 0,
+              f"the service's path missed a kernel: {serve_counts}")
+
+        # 3. a cancelled future and a starved bucket
+        orig = svc._launch
+
+        def slow(s):
+            def f(inp):
+                time.sleep(s)
+                return orig(inp)
+            return f
+        svc._launch = slow(0.2)
+        doomed = svc.submit(*pairs[0])
+        cancelled = doomed.cancel()
+        rest = [svc.submit(*pairs[1]) for _ in range(3)]
+        for f in rest:
+            f.result(timeout=120)
+        with svc._lock:
+            busy = svc._busy
+        svc._launch = slow(0.25)
+        svc.max_hold_s = 0.05
+        flood = []
+
+        def feeder():
+            for _ in range(10):
+                flood.extend(svc.submit(*pairs[2]) for _ in range(8))
+                time.sleep(0.3)
+        th = threading.Thread(target=feeder)
+        th.start()
+        time.sleep(0.15)
+        t0 = time.perf_counter()
+        svc.submit(*pairs[5]).result(timeout=120)
+        lone = time.perf_counter() - t0
+        th.join()
+        for f in flood:
+            f.result(timeout=300)
+        svc._launch = orig
+        svc.max_hold_s = 0.1
+        try:
+            doomed.result(timeout=0)
+            doomed_state = "resolved"
+        except CancelledError:
+            doomed_state = "cancelled"
+        rec = {"phase": 12, "cancelled": cancelled,
+               "cancelled_future": doomed_state, "busy_after": busy,
+               "starved_bucket_latency_s": lone, "flood": len(flood)}
+        emit(rec, log)
+        check(cancelled and doomed_state == "cancelled" and busy == 0
+              and lone < 2.0, f"cancel or starvation check failed: {rec}")
+
+        # 4. throughput and latency at 1, 8 and 32 clients
+        for clients in (1, 8, 32):
+            svc.stats.reset()
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+
+            def closed_loop(c):
+                for r in range(c, 128, clients):
+                    svc.submit(*pairs[r % 4]).result(timeout=300)
+            threads = [threading.Thread(target=closed_loop, args=(c,))
+                       for c in range(clients)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            wall = time.perf_counter() - t0
+            counts = read_counts()
+            snap = svc.stats.snapshot()
+            emit({"phase": 12, "clients": clients, "requests": 128,
+                  "bucket": list(hw), "pairs_per_s": 128 / wall,
+                  "latency_ms_p50": snap["latency_ms_p50"],
+                  "latency_ms_p99": snap["latency_ms_p99"],
+                  "phase_ms_mean": snap["phase_ms_mean"],
+                  "batch_hist": snap["batch_hist"],
+                  "launches_per_request": {
+                      k: counts[k] / 128 for k in
+                      ("coarse_layer", "dual_softmax", "fine_stage")}},
+                 log)
+    finally:
+        svc.close()
+
+    # 5. the options, each held against itself with use_pallas=False
+    options = {
+        # GroupNorm's 8 groups do not divide the flagship's 196 channels:
+        # the padded widths
+        "group_norm": {"backbone": {"norm": "group",
+                                    "block_dims": (128, 256, 256)}},
+        # 16_4's coarse width is block_dims[3] and its fine width
+        # block_dims[1]: at JAX's default (128, 196, 256, 512) no kernel
+        # takes them (A and B need 256, C a multiple of 64), so the stages
+        # get widths that run every kernel of the path
+        "ResNetFPN_16_4": {"backbone": {"resolution": (16, 4),
+                                        "block_dims": (128, 128, 196, 256)},
+                           "fine": {"d_model": 128}},
+        "full_attention": {"coarse": {"attention": "full"}}}
+    a, b = images_hw(6, *hw)
+    inp = MatchInput(
+        image0=torch.from_numpy(a[None, :, :, None] / np.float32(255)).to(dev),
+        image1=torch.from_numpy(b[None, :, :, None] / np.float32(255)).to(dev))
+    for name, over in options.items():
+        cfg = get_config("indoor_ds", {"loftr": {**over, **thr0}})
+        m = init_weights(LoFTR(cfg.loftr), 1)
+        if name == "group_norm":
+            with torch.no_grad():
+                for mod in m.backbone.modules():
+                    if isinstance(mod, torch.nn.GroupNorm):
+                        mod.weight.copy_(torch.rand(
+                            mod.num_channels, generator=g) + 0.5)
+                        mod.bias.copy_(torch.randn(
+                            mod.num_channels, generator=g) * 0.1)
+        m = m.eval().to(dev)
+        kern = with_config(m, {"dtype": "bfloat16"})
+        plain = with_config(m, {"dtype": "bfloat16",
+                                "coarse": {"use_pallas": False},
+                                "match_coarse": {"use_pallas": False},
+                                "fine": {"use_pallas": False}})
+        plain32 = with_config(plain, {"dtype": "float32"})
+        kern(inp)
+        torch.cuda.synchronize()
+        reset_counts()
+        got = _stage_fields(kern, inp)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        ok, d = hold_model(got, _stage_fields(plain, inp),
+                           _stage_fields(plain32, inp))
+        want = dict(dual_softmax=1, fine_stage=1,
+                    coarse_layer=0 if name == "full_attention" else 12)
+        rec = {"phase": 12, "option": name, "launches": counts,
+               "plain_path": ("the coarse stack (attention 'full': kernel "
+                              "A computes linear attention)"
+                              if name == "full_attention" else None),
+               "model_ms": cuda_ms(lambda: kern(inp), iters=5),
+               "plain_model_ms": cuda_ms(lambda: plain(inp), iters=5),
+               "ok": ok, **d}
+        emit(rec, log)
+        expect_counts(counts, **want)
+        check(ok, f"option {name} disagrees with its plain path: {rec}")
+    emit({"phase": 12, "wall_s": time.perf_counter() - t_phase}, log)
+    return serve_counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12")
     ap.add_argument("--out", default=None,
                     help="also append the JSON lines to this file")
     args = ap.parse_args(argv)
@@ -2644,6 +3174,7 @@ def main(argv=None):
                 f"a bf16 pass of {src_name} spills: {ptxas}")
         results = {}
         main_counts = train_counts = ot_counts = cli_counts = None
+        serve_counts = None
         with torch.no_grad():  # the inference phases carry no graph
             if 2 in phases:
                 kernel_checks(dev, log, results)
@@ -2676,6 +3207,9 @@ def main(argv=None):
             eval_path(dev, log, smi)
         if 11 in phases:
             cli_counts = train_cli_path(dev, log, smi)
+        if 12 in phases:
+            with torch.no_grad():
+                serve_counts = serve_path(dev, log)
         if results and None not in (main_counts, train_counts, ot_counts):
             pal = "loftr_tpu/ops/pallas/"
             src = {"coarse_layer": ("coarse_layer.cu", "coarse_layer.py:117"),
@@ -2717,6 +3251,11 @@ def main(argv=None):
                 for name in ("coarse_layer", "dual_softmax", "fine_stage",
                              "focal_loss"):
                     extra.setdefault(name, {})["cli_launches"] = cli_rows[name]
+            if serve_counts is not None:
+                # phase 12's service run: 64 requests through A, B and C
+                for name in ("coarse_layer", "dual_softmax", "fine_stage"):
+                    extra.setdefault(name, {})["serve_launches"] = \
+                        serve_counts[name]
             optional = ("ms_forward", "ms_backward", "peak_mem_MiB",
                         "plain_peak_mem_MiB", "ms_prefilter",
                         "ms_1024_windows", "device_ms_1024_windows",

@@ -43,6 +43,10 @@ def fused_fine_forward(tr: LocalFeatureTransformer, win0: torch.Tensor,
     if tr.layer_names != ("self", "cross"):
         raise ValueError("the fine-stage kernel implements the reference "
                          "topology ('self', 'cross') only")
+    if tr.attention != "linear":
+        raise ValueError("the fine-stage kernel implements linear "
+                         "attention only: set fine.use_pallas False for "
+                         "fine.attention 'full'")
     b, k, w2, c = win0.shape
     if trainable:
         expec = fused_fine_stage_hybrid(

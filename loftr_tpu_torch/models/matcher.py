@@ -2,9 +2,11 @@
 
 Same stage order as ``loftr_tpu.models.matcher.LoFTR`` (the reference's
 loftr.py:29-75):
-  [1] ResNet-FPN backbone (both images in one call when their shapes agree)
+  [1] ResNet-FPN backbone, (8, 2) or (16, 4), with batch, group or folded
+      norm (both images in one call when their shapes agree)
   [2] position encoding + flatten to [B, L, C]
   [3] coarse transformer (self/cross x4)          -> coarse-layer kernel
+      (``coarse.attention="full"``: softmax attention on the plain stack)
   [4] dual-softmax + mutual-nearest candidates    -> dual-softmax kernel
       (``match_type="sinkhorn"``: Sinkhorn OT with the learned dustbin score
       ``coarse_matching.bin_score``                -> Sinkhorn kernel)
@@ -141,9 +143,13 @@ class LoFTR(nn.Module):
                         feat_f1.contiguous(), mask_c0, mask_c1)
 
     def coarse(self, f: Features, train: bool = False) -> Features:
-        """[3] coarse transformer (the kernel is inference only)."""
+        """[3] coarse transformer.  The kernel is inference only and
+        computes linear attention: with ``coarse.attention == "full"`` the
+        configured function is softmax attention, which the plain stack
+        computes (the JAX matcher's gate, ``loftr_tpu/models/matcher.py``)."""
         cfg = self.config
-        if cfg.coarse.use_pallas and not train:
+        if (cfg.coarse.use_pallas and not train
+                and cfg.coarse.attention == "linear"):
             c0, c1 = fused_coarse_forward(self.loftr_coarse, f.feat_c0,
                                           f.feat_c1, f.mask_c0, f.mask_c1,
                                           cfg.batch_packing)

@@ -1,10 +1,14 @@
-"""LoFTR transformer: interleaved self/cross linear-attention layers.
+"""LoFTR transformer: interleaved self/cross attention layers, linear or
+full.
 
 Same topology, parameter names and numerics as the reference's
 ``loftr_module/transformer.py`` and ``loftr_tpu.models.transformer`` (the
 plain path): bias-free Q/K/V projections, multi-head linear attention,
 bias-free merge, LayerNorm, the concat-style FFN ``mlp([x || message])``, a
-second LayerNorm and the residual ``x + message``.
+second LayerNorm and the residual ``x + message``.  ``attention="full"``
+takes softmax attention (``ops.attention.full_attention``) in place of the
+linear one; ``fused_heads`` and ``fused_window_attn`` then do not apply,
+as in the JAX package.
 
 Parameters stay float32 and are cast to the activation dtype at each use;
 LayerNorm runs in float32 and casts back, as in the JAX package.
@@ -26,7 +30,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from loftr_tpu_torch.ops.attention import (linear_attention,
+from loftr_tpu_torch.ops.attention import (full_attention, linear_attention,
                                            linear_attention_fused_heads)
 from loftr_tpu_torch.ops.packing import pack_rows, unpack_rows
 from loftr_tpu_torch.utils.derived import derived
@@ -48,8 +52,11 @@ def layer_norm_f32(m: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 class LoFTREncoderLayer(nn.Module):
     def __init__(self, d_model: int, nhead: int, fused_heads: bool = False,
                  fused_window_attn: bool = False,
-                 fused_heads_eval: bool = False):
+                 fused_heads_eval: bool = False, attention: str = "linear"):
         super().__init__()
+        if attention not in ("linear", "full"):
+            raise ValueError(f"attention {attention!r}")
+        self.attention = attention
         self.nhead = nhead
         self.d_model = d_model
         self.fused_heads = fused_heads
@@ -74,16 +81,19 @@ class LoFTREncoderLayer(nn.Module):
         q = apply_linear(self.q_proj, x)
         k = apply_linear(self.k_proj, source)
         v = apply_linear(self.v_proj, source)
-        if (self.fused_window_attn and x_mask is None and source_mask is None
+        if (self.fused_window_attn and self.attention == "linear"
+                and x_mask is None and source_mask is None
                 and x.shape == source.shape):
             from loftr_tpu_torch.ops.kernels.window_attention import \
                 window_linear_attention
             message = window_linear_attention(q, k, v, nheads=h)
         else:
-            attn = (linear_attention_fused_heads
-                    if self.fused_heads
-                    and (self.training or self.fused_heads_eval)
-                    else linear_attention)
+            if self.attention == "full":
+                attn = full_attention
+            elif self.fused_heads and (self.training or self.fused_heads_eval):
+                attn = linear_attention_fused_heads
+            else:
+                attn = linear_attention
             message = attn(q.reshape(b, l, h, d), k.reshape(b, -1, h, d),
                            v.reshape(b, -1, h, d), q_mask=x_mask,
                            kv_mask=source_mask)
@@ -125,22 +135,21 @@ def run_layers(layers: Sequence, layer_names: Sequence[str], layer_fn,
 
 
 class LocalFeatureTransformer(nn.Module):
-    """A named sequence of 'self'/'cross' encoder layers (plain path)."""
+    """A named sequence of 'self'/'cross' encoder layers (plain path),
+    with linear or full attention."""
 
     def __init__(self, d_model: int, nhead: int, layer_names: Sequence[str],
                  attention: str = "linear", fused_heads: bool = False,
                  fused_window_attn: bool = False,
                  fused_heads_eval: bool = False):
         super().__init__()
-        if attention != "linear":
-            raise NotImplementedError(
-                f"attention {attention!r}: only 'linear' is ported")
+        self.attention = attention
         self.d_model = d_model
         self.nhead = nhead
         self.layer_names = tuple(layer_names)
         self.layers = nn.ModuleList(
             [LoFTREncoderLayer(d_model, nhead, fused_heads, fused_window_attn,
-                               fused_heads_eval)
+                               fused_heads_eval, attention)
              for _ in self.layer_names])
 
     def forward(self, feat0, feat1, mask0=None, mask1=None,

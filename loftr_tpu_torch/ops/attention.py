@@ -1,4 +1,5 @@
-"""Linear attention (the reference's linear_attention.py:14-47), plain PyTorch.
+"""Linear attention (the reference's linear_attention.py:14-47) and full
+softmax attention (:56-81), plain PyTorch.
 
 The plain twin of the coarse-layer and fine-stage kernels, and the body of
 the plain ``LoFTREncoderLayer``; ``linear_attention_fused_heads`` is the
@@ -6,6 +7,11 @@ same function with the heads fused into full-width products (the training
 path of the fine transformer).  Same numerics as
 ``loftr_tpu.ops.attention.linear_attention``: the elu+1 feature map, masks
 on Q, K and V, the ``/S ... *S`` round trip and a float32 normaliser.
+
+``full_attention`` is ``loftr_tpu.ops.attention.full_attention``: float32
+scores, a softmax over the source, fully masked rows set to zero.  It is
+written out, not ``scaled_dot_product_attention``, whose fully masked rows
+come out NaN.
 
 Layout: [B, L, H, D].
 """
@@ -85,3 +91,30 @@ def linear_attention_fused_heads(q: torch.Tensor, k: torch.Tensor,
     z = 1.0 / (denom + eps)                                     # [B, L, H]
     out = qkv.reshape(B, L, H, D) * z[..., None] * s_len
     return out.to(q.dtype)
+
+
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   q_mask: torch.Tensor | None = None,
+                   kv_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Softmax attention.  q: [B, L, H, D]; k, v: [B, S, H, D]; masks
+    [B, L] / [B, S].  Scores in float32; a query row whose pairs are all
+    masked gives zeros.  Returns [B, L, H, D] in v's dtype."""
+    f32 = torch.float32
+    d = q.shape[-1]
+    qk = torch.einsum("blhd,bshd->blsh", q.to(f32), k.to(f32))
+    masked = q_mask is not None or kv_mask is not None
+    if masked:
+        qm = (q_mask if q_mask is not None
+              else torch.ones(q.shape[:2], dtype=torch.bool, device=q.device))
+        kvm = (kv_mask if kv_mask is not None
+               else torch.ones(k.shape[:2], dtype=torch.bool,
+                               device=k.device))
+        pair = qm[:, :, None].bool() & kvm[:, None, :].bool()
+        qk = qk.masked_fill(~pair[..., None], float("-inf"))
+    attn = torch.softmax(qk / torch.sqrt(torch.tensor(float(d), dtype=f32)),
+                         dim=2)
+    if masked:
+        attn = torch.nan_to_num(attn)
+    out = torch.einsum("blsh,bshd->blhd", attn.to(v.dtype).to(f32),
+                       v.to(f32))
+    return out.to(v.dtype)

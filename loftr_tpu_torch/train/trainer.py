@@ -11,9 +11,17 @@ synchronisation inside a step), except ``lr``.
 With ``accum_steps > 1`` the micro-batch gradients are averaged, the
 *average* is clipped, the optimizer runs once per ``accum_steps`` steps and
 the schedule counts those real updates (``optax.MultiSteps`` semantics).
+
+A model of dtype float32 trains in float32: ``train_step`` turns cuDNN's
+and cuBLAS's TF32 off while it runs and gives the previous flags back, as
+JAX computes float32 convolutions and products in float32 on the CPU.
+PyTorch's default, TF32 convolutions, cost the accuracy benchmark's seed 2
+0.021-0.034 auc@20 in each of five inits on the H100 (``PERF.md``).
+The bfloat16 path keeps the flags as they are.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -37,6 +45,24 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     generator: torch.Generator              # match-selection randomness
     accum: Optional[List[torch.Tensor]] = None  # running mean of gradients
+
+
+@contextlib.contextmanager
+def true_float32(on: bool):
+    """cuDNN's and cuBLAS's TF32 off while the block runs, when ``on``;
+    the previous flags are restored afterwards."""
+    if not on:
+        yield
+        return
+    flags = torch.backends.cudnn, torch.backends.cuda.matmul
+    prev = tuple(f.allow_tf32 for f in flags)
+    for f in flags:
+        f.allow_tf32 = False
+    try:
+        yield
+    finally:
+        for f, p in zip(flags, prev):
+            f.allow_tf32 = p
 
 
 class Trainer:
@@ -126,9 +152,10 @@ class Trainer:
         """One (micro-)step on ``batch``; ``noise`` replaces the generator's
         draws for the match selection (tests)."""
         batch = batch.to(self.device)
-        loss, scalars, _ = self.forward_loss(state, batch, noise)
-        params = list(state.module.parameters())
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        with true_float32(self.config.loftr.dtype == "float32"):
+            loss, scalars, _ = self.forward_loss(state, batch, noise)
+            params = list(state.module.parameters())
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
         scalars = {k: v.detach() for k, v in scalars.items()}

@@ -42,6 +42,7 @@ _BN = {("params", "scale"): "weight", ("params", "bias"): "bias",
 _TX = {"q_proj": "q_proj", "k_proj": "k_proj", "v_proj": "v_proj",
        "merge": "merge", "mlp_0": "mlp.0", "mlp_2": "mlp.2"}
 _LN = {"scale": "weight", "bias": "bias"}
+_GN = {"scale": "weight", "bias": "bias"}
 
 
 def _backbone_module(scope: list) -> str:
@@ -71,8 +72,13 @@ def _map_leaf(coll: str, path: list):
             scope = scope[:-1]
             mod = _backbone_module(scope)
             return f"backbone.{mod}.{_BN[(coll, leaf)]}", _same
+        if scope and scope[-1] == "gn" and coll == "params":  # .../gn/{leaf}
+            mod = _backbone_module(scope[:-1])
+            return f"backbone.{mod}.{_GN[leaf]}", _same
         if coll == "params" and leaf == "kernel":
             return f"backbone.{_backbone_module(scope)}.weight", _conv
+        if coll == "params" and leaf == "bias":  # a folded conv's bias
+            return f"backbone.{_backbone_module(scope)}.bias", _same
     elif top in ("loftr_coarse", "loftr_fine") and coll == "params":
         i = re.fullmatch(r"layer_(\d+)", path[1]).group(1)
         mod = path[2]
@@ -102,7 +108,10 @@ def _leaves(tree: Mapping, prefix=()):
 def state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     """JAX ``{'params', 'batch_stats'}`` tree (numpy leaves) -> port
     state_dict.  Raises on any leaf it does not map.  BatchNorm layers also
-    get ``num_batches_tracked = 0`` so the result loads strictly."""
+    get ``num_batches_tracked = 0`` so the result loads strictly.  Takes
+    every backbone norm: BatchNorm, GroupNorm (``gn`` scale and bias) and
+    the folded trees of ``fold_batchnorm`` (conv ``bias``, no
+    ``batch_stats``)."""
     out: Dict[str, torch.Tensor] = {}
     for coll in variables:
         if coll not in ("params", "batch_stats"):

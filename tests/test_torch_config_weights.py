@@ -153,7 +153,10 @@ def test_import_leaves_jax_out():
             "loftr_tpu_torch.utils.plotting, loftr_tpu_torch.utils.logging, "
             "loftr_tpu_torch.train.cli, "
             "loftr_tpu_torch.tools.synthetic_benchmark, "
-            "loftr_tpu_torch.tools.seed_sweep\n"
+            "loftr_tpu_torch.tools.seed_sweep, "
+            "loftr_tpu_torch.utils.folding, "
+            "loftr_tpu_torch.utils.channel_pad, loftr_tpu_torch.serve, "
+            "loftr_tpu_torch.serve.service\n"
             "bad = [m for m in sys.modules if m in ('jax', 'flax', 'optax', "
             "'orbax', 'loftr_tpu') or m.startswith(('jax.', 'flax.', "
             "'optax.', 'orbax.', 'loftr_tpu.'))]\n"
@@ -202,7 +205,16 @@ def test_no_jax_imports_in_port_sources(root):
                 "eval/ransac.py", "eval/five_point_batched.py",
                 "data/loader.py", "native.py", "test.py", "train/cli.py",
                 "train/__main__.py", "utils/logging.py",
-                "tools/synthetic_benchmark.py", "tools/seed_sweep.py"} <= names
+                "tools/synthetic_benchmark.py", "tools/seed_sweep.py",
+                "utils/folding.py", "utils/channel_pad.py",
+                "serve/__init__.py", "serve/service.py"} <= names
+
+
+def test_service_default_device_needs_cuda(monkeypatch):
+    from loftr_tpu_torch.serve import MatchingService
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MatchingService({})
 
 
 def test_load_matcher_default_device_needs_cuda(monkeypatch):

@@ -409,3 +409,27 @@ def test_sparse_default_train_step_matches_jax(ref_sparse):
         _assert_state(state, ref["after"][i], start, sc["lr"],
                       ref["grads"] if i == 0 else _both(ref))
         start = state_dict_from_jax(ref["after"][i])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_float32_training_turns_tf32_off(dtype, monkeypatch):
+    """A float32 model trains with cuDNN's and cuBLAS's TF32 off (true
+    float32, as JAX on the CPU); bfloat16 keeps the flags; both are given
+    back after the step."""
+    trainer = Trainer(_cfg(get_config, dtype=dtype), device="cpu")
+    state = trainer.init_state(seed=0)
+    seen = []
+    orig = trainer.forward_loss
+
+    def spy(*a, **k):
+        seen.append((torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32))
+        return orig(*a, **k)
+
+    monkeypatch.setattr(trainer, "forward_loss", spy)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    trainer.train_step(state, to_torch(train_batch(B=2, seed=BATCH_SEED)))
+    assert seen == [(False, False) if dtype == "float32" else (True, True)]
+    assert torch.backends.cudnn.allow_tf32 is True
+    assert torch.backends.cuda.matmul.allow_tf32 is True
