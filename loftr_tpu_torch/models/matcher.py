@@ -14,6 +14,7 @@ loftr.py:29-75):
       the random selection with GT padding (K = train_coarse_percent * L)
   [5] 5x5 fine windows at the matches + coarse-context concat
   [6]+[7] fine transformer + soft-argmax          -> fine-stage kernel
+      (``fine.attention="full"``: softmax attention on the plain stack)
 The ``use_pallas`` switches of ``cfg.coarse``, ``cfg.match_coarse`` and
 ``cfg.fine`` choose the kernel module (True) or the plain PyTorch path at
 inference.  A kernel module runs its CUDA kernel on CUDA tensors and its
@@ -267,11 +268,15 @@ class LoFTR(nn.Module):
     def fine(self, f: Features, matches: CoarseMatches, inp: MatchInput,
              train: bool = False) -> torch.Tensor:
         """[5] fine windows + coarse context, [6]+[7] fine stage.
-        Returns expec_f [B, K, 3] float32."""
+        Returns expec_f [B, K, 3] float32.  The kernel computes linear
+        attention: with ``fine.attention == "full"`` the configured
+        function is softmax attention, which the plain stack computes (the
+        JAX matcher's gate)."""
         cfg = self.config
         win0, win1 = self.fine_windows(f, matches, inp, train)
         B, K, ww, d_f = win0.shape
-        if cfg.fine.use_pallas_train if train else cfg.fine.use_pallas:
+        if cfg.fine.attention == "linear" and (
+                cfg.fine.use_pallas_train if train else cfg.fine.use_pallas):
             # raises for a topology other than the kernel's ('self', 'cross')
             return fused_fine_forward(self.loftr_fine, win0, win1,
                                       trainable=train)

@@ -166,10 +166,6 @@ def parse_args(argv=None):
                          "workspace; an op without a deterministic version "
                          "warns): repeats of one seed then show whether "
                          "their spread is the card's nondeterminism")
-    ap.add_argument("--no-train-tf32", action="store_true",
-                    help="train with TF32 off in cuDNN and cuBLAS "
-                         "(true float32 convolutions and products, as JAX "
-                         "trains on a CPU); the flags are restored after")
     ap.add_argument("--out", default=None,
                     help="artifact json (default "
                          "perf/torch_synthetic_auc.json)")
@@ -206,23 +202,6 @@ def deterministic(on: bool):
             os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev[4]
 
 
-@contextlib.contextmanager
-def train_tf32(on: bool):
-    """cuDNN's and cuBLAS's TF32 flags off while the block runs, unless
-    ``on``; the previous flags are restored afterwards."""
-    import torch
-    prev = (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32)
-    if not on:
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = prev
-
-
 def main(argv=None) -> dict:
     args = parse_args(argv)
     from loftr_tpu_torch.api import resolve_device
@@ -251,12 +230,11 @@ def main(argv=None) -> dict:
                 print(f"=== seed {seed} arm {arm} ===", flush=True)
                 reset_launch_counts()
                 t = time.time()
-                with train_tf32(not args.no_train_tf32):
-                    ckpt, losses = train(
-                        wd, train_npzs, args.img_size, args.img_resize,
-                        args.steps, args.batch, args.lr, seed,
-                        train_sampling=arm, ckpt_name=f"ckpt_{arm}",
-                        device=device, init_seed=init_seed)
+                ckpt, losses = train(
+                    wd, train_npzs, args.img_size, args.img_resize,
+                    args.steps, args.batch, args.lr, seed,
+                    train_sampling=arm, ckpt_name=f"ckpt_{arm}",
+                    device=device, init_seed=init_seed)
                 train_s = time.time() - t
                 launches = {"train": launch_counts()}
                 res = evaluate_cli(wd, test_idx, ckpt, args.img_resize,
@@ -287,11 +265,7 @@ def main(argv=None) -> dict:
                 print(runs[-1], flush=True)
 
     summary = summarize(runs, args.arms, args.seeds)
-    card = card_info(device)
-    if args.no_train_tf32:
-        card["train_tf32"] = {"cuda.matmul.allow_tf32": False,
-                              "cudnn.allow_tf32": False}
-    artifact = {"config": vars(args), "card": card,
+    artifact = {"config": vars(args), "card": card_info(device),
                 "runs": runs, "summary": summary,
                 "wall_s": round(time.time() - t0, 1)}
     out = args.out or osp.join(REPO, "perf", "torch_synthetic_auc.json")

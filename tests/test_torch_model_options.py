@@ -18,6 +18,7 @@ from loftr_tpu.models.transformer import \
 from loftr_tpu.ops.attention import full_attention as jax_full_attention
 from loftr_tpu_torch import LoFTR, MatchInput, get_config
 from loftr_tpu_torch.models.backbone import build_backbone
+from loftr_tpu_torch.models.fused_fine import fused_fine_forward
 from loftr_tpu_torch.models.transformer import LocalFeatureTransformer
 from loftr_tpu_torch.ops.attention import full_attention
 from loftr_tpu_torch.utils.weights import state_dict_from_jax
@@ -206,12 +207,41 @@ def test_matcher_option_matches_jax(resolution, attention, masked):
 
 
 def test_fine_kernel_refuses_full_attention():
+    """The fine-stage kernel computes linear attention and raises when it
+    is handed a softmax-attention stack."""
+    over = _matcher_over((8, 2), "linear")
+    over["loftr"]["fine"].update(attention="full")
+    model = LoFTR(get_config("indoor_ds", over).loftr).eval()
+    win = torch.zeros(1, 2, 25, 16)
+    with pytest.raises(ValueError, match="linear attention only"):
+        fused_fine_forward(model.loftr_fine, win, win)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_full_fine_attention_takes_the_plain_stack(masked):
+    """``fine.attention='full'`` with the fine stage's ``use_pallas`` on
+    runs, as in JAX, on the plain stack (the configured function is softmax
+    attention) and matches JAX from the images."""
+    r = np.random.RandomState(13)
+    i0 = r.rand(2, 64, 64, 1).astype(np.float32)
+    i1 = r.rand(2, 64, 64, 1).astype(np.float32)
+    kw = {}
+    if masked:
+        m = np.zeros((2, 8, 8), bool)
+        m[:, :6, :7] = True
+        kw = dict(mask0=m, mask1=m)
     over = _matcher_over((8, 2), "linear")
     over["loftr"]["fine"].update(attention="full", use_pallas=True)
-    model = LoFTR(get_config("indoor_ds", over).loftr).eval()
-    r = np.random.RandomState(0)
-    inp = MatchInput(image0=torch.from_numpy(
-        r.rand(1, 64, 64, 1).astype(np.float32)),
-        image1=torch.from_numpy(r.rand(1, 64, 64, 1).astype(np.float32)))
-    with pytest.raises(ValueError, match="linear attention only"):
-        model(inp)
+    jm = JaxLoFTR(jax_get_config("indoor_ds", over).loftr)
+    jinp = JaxMatchInput(image0=jnp.asarray(i0), image1=jnp.asarray(i1),
+                         **{k: jnp.asarray(v) for k, v in kw.items()})
+    v = jm.init(jax.random.PRNGKey(4), jinp)
+    want = jm.apply(v, jinp)
+    model = LoFTR(get_config("indoor_ds", over).loftr)
+    model.load_state_dict(state_dict_from_jax(
+        jax.tree.map(np.asarray, dict(v))))
+    got = model.eval()(MatchInput(
+        image0=torch.from_numpy(i0), image1=torch.from_numpy(i1),
+        **{k: torch.from_numpy(v) for k, v in kw.items()}))
+    assert int(np.asarray(want.valid).sum()) > 0
+    assert_slice_equal(got, want)

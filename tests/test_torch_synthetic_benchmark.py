@@ -111,8 +111,7 @@ TOOLS = {"synthetic_benchmark": (jax_bench, bench, {"--cpu"},
                                  {"--device", "--depth-format"}),
          "seed_sweep": (jax_sweep, sweep, set(),
                         {"--eval-untrained", "--device", "--depth-format",
-                         "--deterministic", "--init-seeds",
-                         "--no-train-tf32"})}
+                         "--deterministic", "--init-seeds"})}
 
 
 @pytest.mark.parametrize("tool", sorted(TOOLS))
@@ -239,32 +238,6 @@ def test_seed_sweep_deterministic_is_scoped(tmp_path, monkeypatch):
     assert (torch.are_deterministic_algorithms_enabled(),
             torch.backends.cudnn.deterministic) == before
     assert "CUBLAS_WORKSPACE_CONFIG" not in os.environ
-
-
-def test_seed_sweep_no_train_tf32_is_scoped(tmp_path, monkeypatch):
-    """--no-train-tf32 trains with cuDNN's and cuBLAS's TF32 off, records
-    it beside the card, and gives the previous flags back."""
-    results = _fake_results([2], ["per_pair"])
-    gen, tr, ev = _fakes(results)
-    seen = []
-
-    def train(*a, **k):
-        seen.append((torch.backends.cudnn.allow_tf32,
-                     torch.backends.cuda.matmul.allow_tf32))
-        return tr(*a, **k)
-
-    for name, fn in (("generate_data", gen), ("train", train),
-                     ("evaluate_cli", ev)):
-        monkeypatch.setattr(sweep, name, fn)
-    monkeypatch.setattr(sweep, "live_cells", lambda *a: {"pairs": 0})
-    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
-    got = sweep.main(["--seeds", "2", "--arms", "per_pair", "--steps", "60",
-                      "--no-train-tf32", "--device", "cpu", "--work-dir",
-                      str(tmp_path), "--out", str(tmp_path / "t.json")])
-    assert seen == [(False, False)]
-    assert got["card"]["train_tf32"] == {"cuda.matmul.allow_tf32": False,
-                                         "cudnn.allow_tf32": False}
-    assert torch.backends.cudnn.allow_tf32 is True
 
 
 def test_seed_sweep_init_seeds(tmp_path, monkeypatch):

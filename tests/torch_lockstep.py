@@ -34,7 +34,13 @@ keeps no free-running port: every record is then an anchor, at the cost of
 one port step a step (the CPU test runs so).
 
 The run snapshots both states every ``--chunk`` steps into the work
-directory; ``--resume`` continues from the last snapshot.  The record names
+directory; ``--resume`` continues from the last snapshot.  ``--evaluate``
+reads the last snapshot instead of training and evaluates both states on
+the seed's 3 held-out scenes (63 pairs, float32, OpenCV at 1.5 px): the
+port's state through the port's eval CLI, JAX's through JAX's ``test.py``
+and, as the check that the two evaluators agree, through the port's::
+
+  python tests/torch_lockstep.py --work-dir build/lockstep --evaluate  The record names
 the first step at which a loss term or a group's distance grows by more
 than ``--jump`` times in one step (above a floor of float32 noise).
 """
@@ -584,6 +590,46 @@ def run(args):
     return summarize(records, args)
 
 
+def evaluate(args):
+    """Both states of the last snapshot on the held-out scenes."""
+    from loftr_tpu.train.checkpoint import save_params as jax_save_params
+    from loftr_tpu_torch.tools import synthetic_benchmark as port_tool
+    from loftr_tpu_torch.utils.weights import state_dict_from_jax
+    with open(osp.join(args.work_dir, "snapshot.pkl"), "rb") as f:
+        s = pickle.load(f)
+    jax_tool = _jax_tool()
+    wd = osp.join(args.work_dir, "eval")
+    os.makedirs(wd, exist_ok=True)
+    # the held-out scenes' seeds do not depend on the number of train scenes
+    _, test_idx = jax_tool.generate_data(wd, 0, 3, args.views,
+                                         args.img_size, args.seed)
+    extra = ({"loftr": {"loss": {"fine_type": args.fine_type}}}
+             if args.fine_type else None)
+    port_ckpt = osp.join(wd, "ckpt_port")
+    torch.save(s["port_module"], port_ckpt)
+    jax_ckpt = osp.join(wd, "ckpt_jax")
+    jax_save_params(jax_ckpt, _variables(s["jax"]))
+    jax_as_port = osp.join(wd, "ckpt_jax_as_port")
+    torch.save(state_dict_from_jax(_variables(s["jax"])), jax_as_port)
+    env = {"JAX_PLATFORMS": "cpu", "OMP_NUM_THREADS": str(args.threads)}
+    out = {"step": s["step"],
+           "port": port_tool.evaluate_cli(wd, test_idx, port_ckpt,
+                                          args.img_resize, extra_env=env,
+                                          extra_cfg=extra, device="cpu"),
+           "jax": jax_tool.evaluate_cli(wd, test_idx, jax_ckpt,
+                                        args.img_resize, extra_env=env,
+                                        extra_cfg=extra),
+           "jax_by_port_evaluator": port_tool.evaluate_cli(
+               wd, test_idx, jax_as_port, args.img_resize, extra_env=env,
+               extra_cfg=extra, device="cpu")}
+    print(json.dumps(out))
+    if args.out:
+        os.makedirs(osp.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+    return out
+
+
 def summarize(records, args):
     anchors = [r["anchor"] for r in records if "anchor" in r]
 
@@ -661,9 +707,13 @@ def parse_args(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--threads", type=int, default=4)
     ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--evaluate", action="store_true",
+                    help="evaluate the last snapshot's two states on the "
+                         "held-out scenes instead of training")
     ap.add_argument("--out", default=None)
     return ap.parse_args(argv)
 
 
 if __name__ == "__main__":
-    run(parse_args())
+    a = parse_args()
+    evaluate(a) if a.evaluate else run(a)
