@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``loftr_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12] [--out FILE]
+    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13] [--out FILE]
 
 Phases, each of which must pass (any failure exits non-zero):
   1. environment: card name and power limit, versions, kernel build time
@@ -100,14 +100,35 @@ Phases, each of which must pass (any failure exits non-zero):
      phase split and kernel launches per request at 1, 8 and 32 clients
      (128 requests each); one bf16 forward each of the ``group`` norm,
      ``ResNetFPN_16_4`` and ``coarse.attention = "full"``, held to the same
-     module with ``use_pallas=False``.
+     module with ``use_pallas=False``;
+ 13. the SfM backend: ``loftr_tpu_torch.sfm.cli.main`` in-process on a
+     synthetic ScanNet-layout sequence (60 frames at 640x480, JPEG colour,
+     16-bit depth PNGs in mm, cam2world poses, K) with full-width
+     ``indoor_ds`` bf16 and seeded random weights, ``--keyframe-stride 5``:
+     kernels A, B and C launched once a match call (12 / 1 / 1), the
+     report's keys (``sfm.py``'s, with ``ate``), ms a match call, the
+     stage times and, when the run finds edges, the host share (tracks and
+     problem build), peak memory; ``run_sfm`` on the oracle scene (200 frames, 2000 points,
+     stride 5: 40 keyframes, with depth), dense and pcg, on the card and on
+     the CPU with the same RANSAC draws: JAX's ATE bars on both, camera
+     centres within 1e-3 after a Sim(3) alignment whose scale is within
+     1e-4 of 1, stage times; BA at keyframe scale (C = 300, P =
+     100,000, O = 8, noise 1e-3): one ``ba_iteration`` dense and pcg
+     against the CPU (costs within 1e-5, poses and points no further from
+     the float64 step than twice the CPU's float32 step), ms and device ms
+     per LM iteration, launches per iteration, peak memory; full
+     ``bundle_adjust`` below 3 M noise^2, twice with equal bits;
+     ``reset_point_outliers`` with 2% of the points dragged: the card's
+     gates equal the CPU's, at least 95% of the planted outliers zeroed and
+     no more good observations than the noise's tail puts beyond the gate
+     (bar 10, ~3 expected).
 Each main path (one ``match_pair`` call of each preset; the 8 training
 steps; the two switch runs; the CLI's ``batched`` run; the train CLI's
-first run; the service's 64 requests) runs with every
+first run; the service's 64 requests; the SfM CLI's run) runs with every
 kernel launch counter set to 0 just before it; the counts read just after
 it must show every kernel of that path.  ``--phases 5,6`` runs only the
 indoor_ds training, ``--phases 10`` only the evaluation path, ``--phases
-11`` only the training CLI.  Results go
+11`` only the training CLI, ``--phases 13`` only the SfM backend.  Results go
 to stdout one JSON object per line; the line before the last is the kernel
 summary, and the last line is the contract line ``{"ok": true, "device":
 {...}}``.  Without CUDA, or without the package beside this script, it exits
@@ -118,6 +139,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -3254,9 +3276,444 @@ def serve_path(dev, log, hw=(H, W), hw_big=(840, 840)):
     return serve_counts
 
 
+# --------------------------------------------------------------------------
+# phase 13: the SfM backend and python -m loftr_tpu_torch.sfm
+# --------------------------------------------------------------------------
+
+# the report keys of the JAX package's sfm.py
+SFM_KEYS = ("scene", "n_frames", "n_keyframes", "n_edges", "ba_cost")
+
+
+def _rotations(w):
+    """[N, 3] axis-angle (numpy) -> [N, 3, 3] float64 (the port's exp_so3)."""
+    import torch
+    from loftr_tpu_torch.sfm.lie import exp_so3
+    return exp_so3(torch.from_numpy(w).double()).numpy()
+
+
+class OracleScene:
+    """``tests/test_sfm_pipeline.py``'s ``SynthScene`` (a camera translating
+    0.12 m a frame through a point cloud, an oracle matcher with pixel
+    noise, depth at the projected points) stretched over a long sweep: the
+    points fill the whole path and the camera's yaw and roll wobble instead
+    of growing, so every frame of ``n_frames`` sees the cloud."""
+
+    def __init__(self, n_frames, n_pts, seed=0, noise=0.2):
+        import numpy as np
+        rng = np.random.RandomState(seed)
+        self.K = np.array([[400.0, 0, 320], [0, 400.0, 240], [0, 0, 1]])
+        self.pts = (rng.rand(n_pts, 3) * [8 + 0.12 * n_frames, 5, 4]
+                    + [-4, -2.5, 4])
+        self.noise = noise
+        self.rng = rng
+        f = np.arange(n_frames)
+        self.R = _rotations(np.stack([0 * f, 0.1 * np.sin(f / 40.0),
+                                      0.02 * np.sin(f / 25.0)], -1))
+        centers = np.stack([0.12 * f, 0.02 * np.sin(f), 0.01 * f], -1)
+        self.t = -np.einsum("nij,nj->ni", self.R, centers)
+        self.n_frames = n_frames
+
+    def project(self, f):
+        Xc = self.pts @ self.R[f].T + self.t[f]
+        uv = Xc @ self.K.T
+        uv = uv[:, :2] / uv[:, 2:]
+        vis = (Xc[:, 2] > 0.5) & (uv[:, 0] > 5) & (uv[:, 0] < 635) & \
+              (uv[:, 1] > 5) & (uv[:, 1] < 475)
+        return uv, vis, Xc[:, 2]
+
+    def depth_map(self, f):
+        import numpy as np
+        uv, vis, z = self.project(f)
+        depth = np.zeros((480, 640), np.float32)
+        pix = np.round(uv[vis]).astype(int)
+        depth[np.clip(pix[:, 1], 0, 479), np.clip(pix[:, 0], 0, 639)] = \
+            z[vis]
+        return depth
+
+    def match_fn(self, a, b):
+        import numpy as np
+        uva, visa, _ = self.project(a)
+        uvb, visb, _ = self.project(b)
+        common = np.nonzero(visa & visb)[0]
+        k0 = uva[common] + self.rng.randn(len(common), 2) * self.noise
+        k1 = uvb[common] + self.rng.randn(len(common), 2) * self.noise
+        return (k0.astype(np.float32), k1.astype(np.float32),
+                common.astype(np.int64), common.astype(np.int64))
+
+
+def long_ba_problem(C, P, O, noise, pose_noise, point_noise, seed=0,
+                    window=30):
+    """``tests/test_sfm_ba.py``'s BA generator scaled to a long scene:
+    ``C`` keyframes 0.1 m apart along x with a small yaw wobble, ``P``
+    points in front of the whole path, each seen by ``O`` distinct
+    keyframes among the ``2 window + 1`` nearest (banded, as a sequence
+    sees its map); normalized observations with ``noise``, poses and
+    points perturbed as there, keyframe 0 fixed.  Vectorized numpy;
+    returns (arrays of a BAProblem, R_gt, t_gt)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    span = 0.1 * (C - 1)
+    pts = rng.rand(P, 3) * [span + 2, 3, 2] + [-1, -1.5, 6]
+    c_idx = np.arange(C)
+    R_gt = _rotations(np.stack([0 * c_idx, 0.05 * np.sin(c_idx / 7.0),
+                                0 * c_idx], -1))
+    centers = np.stack([0.1 * c_idx, 0.1 * rng.randn(C), 0 * c_idx], -1)
+    t_gt = -np.einsum("nij,nj->ni", R_gt, centers)
+    window = min(window, (C - 1) // 2)
+    n_win = 2 * window + 1
+    start = np.clip(np.round(pts[:, 0] / 0.1).astype(int) - window, 0,
+                    C - n_win)
+    obs_cam = (start[:, None]
+               + np.argsort(rng.rand(P, n_win), 1)[:, :O]).astype(np.int64)
+    Xc = (np.einsum("poij,pj->poi", R_gt[obs_cam], pts) + t_gt[obs_cam])
+    obs_uv = (Xc[..., :2] / Xc[..., 2:]
+              + rng.randn(P, O, 2) * noise).astype(np.float32)
+    R0, t0 = R_gt.copy(), t_gt.copy()
+    R0[1:] = _rotations(rng.randn(C - 1, 3) * pose_noise) @ R_gt[1:]
+    t0[1:] += rng.randn(C - 1, 3) * pose_noise
+    pts0 = pts + rng.randn(P, 3) * point_noise
+    fix = np.zeros(C, bool)
+    fix[0] = True
+    arrays = dict(R=R0.astype(np.float32), t=t0.astype(np.float32),
+                  points=pts0.astype(np.float32), obs_uv=obs_uv,
+                  obs_cam=obs_cam, obs_w=np.ones((P, O), np.float32),
+                  fix_mask=fix)
+    return arrays, R_gt, t_gt
+
+
+def _ba_problem(arrays, device, dtype=None):
+    import torch
+    from loftr_tpu_torch.sfm.bundle_adjustment import BAProblem
+    out = {}
+    for k, v in arrays.items():
+        t = torch.from_numpy(v).to(device)
+        out[k] = t.to(dtype) if dtype is not None and t.is_floating_point() \
+            else t
+    return BAProblem(**out)
+
+
+def _rel(a, b):
+    """max |a - b| over max |b| (tensors on any device)."""
+    a = a.detach().double().cpu()
+    b = b.detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def _equal_bits(p, q):
+    import torch
+    return all(torch.equal(getattr(p, k), getattr(q, k))
+               for k in ("R", "t", "points", "obs_w"))
+
+
+def kernel_launches(fn, tries=3):
+    """CUDA kernels (and memory copies / sets) one call of ``fn`` launches,
+    from the profiler; None when a window records no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if getattr(e, "device_type", None)
+                 == torch.autograd.DeviceType.CUDA]
+        if names:
+            mem = sum(n.startswith(("Memcpy", "Memset")) for n in names)
+            return {"kernels": len(names) - mem, "memcpy_memset": mem}
+    return None
+
+
+def sfm_cli_run(dev, log, n_frames, hw):
+    """Phase 13, part 1: ``loftr_tpu_torch.sfm.cli.main`` in-process on a
+    synthetic ScanNet-layout sequence with full-width ``indoor_ds`` bf16
+    and seeded random weights, ``--keyframe-stride 5``; the launch counts
+    of the run (the main path)."""
+    import shutil
+    import tempfile
+    import torch
+    from loftr_tpu_torch.data.synthetic import write_scannet_sequence
+    from loftr_tpu_torch.sfm import cli
+    from loftr_tpu_torch.utils.profiler import RegionProfiler
+
+    root = tempfile.mkdtemp(prefix="loftr_sfm_")
+    try:
+        scene = os.path.join(root, "scene0000_00")
+        t0 = time.perf_counter()
+        write_scannet_sequence(scene, n_frames=n_frames, size=(hw[1], hw[0]),
+                               seed=0)
+        write_s = time.perf_counter() - t0
+        prof = RegionProfiler()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        report = cli.main(
+            ["--scene-dir", scene, "--intrinsic",
+             os.path.join(scene, "intrinsic", "intrinsic_color.txt"),
+             "--keyframe-stride", "5", "--resize", str(hw[1]), str(hw[0]),
+             "--out", os.path.join(root, "traj.npz"), "--device", str(dev)],
+            profiler=prof)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        traj_ok = os.path.exists(os.path.join(root, "traj.npz"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    match_s = prof.times["sfm/match"]
+    n_match = len(match_s)
+    totals = prof.totals()
+    host_s = sum(totals[k]["total_s"] for k in ("sfm/tracks", "sfm/problem"))
+    rec = {"phase": 13, "part": "sfm_cli", "frames": n_frames,
+           "hw": list(hw), "report": report, "launches": counts,
+           "match_calls": n_match,
+           "match_ms_mean": 1000 * sum(match_s) / n_match,
+           "match_ms_after_first": (1000 * sum(match_s[1:]) / (n_match - 1)
+                                    if n_match > 1 else None),
+           "wall_s": wall, "write_sequence_s": write_s,
+           "host_tracks_problem_s": host_s,
+           # with no edge the tracks and the problem are empty: their share
+           # of the run measures nothing of the backend
+           "host_tracks_problem_share": (host_s / wall if report.get("n_edges")
+                                         else None),
+           "stages": totals, "peak_mem_MiB": peak,
+           "note": ("seeded random weights: an untrained net finds few or "
+                    "no matches (thr 0.2), so the sequence may give no "
+                    "edges and no BA; no threshold was tuned")}
+    emit(rec, log)
+    check(set(SFM_KEYS) <= set(report) and "ate" in report and traj_ok,
+          f"the SfM CLI's report lacks sfm.py's keys: {report}")
+    check(n_match == 2 * (len(range(0, n_frames, 5)) - 1) - 1,
+          f"{n_match} match calls for {n_frames} frames at stride 5")
+    expect_counts(counts, coarse_layer=12 * n_match, dual_softmax=n_match,
+                  fine_stage=n_match)
+    return counts
+
+
+def sfm_oracle_run(dev, log, n_frames, n_pts):
+    """Phase 13, part 2: ``run_sfm`` on the oracle scene with depth, dense
+    and pcg, on the card and on the CPU (the same RANSAC draws): JAX's ATE
+    bars; the card's camera centres within the tests' 1e-3 of the CPU's
+    after a Sim(3) alignment, the alignment's scale within 1e-4 of 1; the
+    card's stage times."""
+    import numpy as np
+    import torch
+    from loftr_tpu_torch.sfm.ate import (absolute_trajectory_error,
+                                         align_umeyama, camera_centers)
+    from loftr_tpu_torch.sfm.pipeline import run_sfm
+    from loftr_tpu_torch.utils.profiler import RegionProfiler
+
+    cpu = torch.device("cpu")
+    for solver in ("dense", "pcg"):
+        outs = {}
+        for device in (dev, cpu):
+            scene = OracleScene(n_frames, n_pts, seed=0)
+            depths = [scene.depth_map(f) if f % 5 == 0 else None
+                      for f in range(n_frames)]
+            prof = RegionProfiler()
+            t0 = time.perf_counter()
+            out = run_sfm(n_frames, scene.match_fn, scene.K, depths=depths,
+                          keyframe_stride=5, link_range=2, ba_iters=15,
+                          seed=0, ba_solver=solver, device=device,
+                          profiler=prof)
+            wall = time.perf_counter() - t0
+            kfs = out["keyframes"]
+            ate = absolute_trajectory_error(
+                camera_centers(out["R"], out["t"]),
+                camera_centers(scene.R[kfs], scene.t[kfs]))
+            outs[device.type] = (out, ate, prof.totals(), wall)
+        (o_d, ate_d, st_d, wall_d), (o_c, ate_c, _, wall_c) = (
+            outs[dev.type], outs["cpu"])
+        c_d = camera_centers(o_d["R"], o_d["t"])
+        c_c = camera_centers(o_c["R"], o_c["t"])
+        # the card's trajectory on the CPU's: BA leaves the map's scale a
+        # gauge that float rounding moves along a 24 m path, so the shapes
+        # are compared after a Sim(3) alignment, the scales apart
+        s, R, t = align_umeyama(c_d, c_c)
+        gap = float(np.abs(c_d - c_c).max())
+        gap_aligned = float(np.abs(s * c_d @ R.T + t - c_c).max())
+        ok = (len(o_d["edges"]) == len(o_c["edges"])
+              and len(o_d["edges"]) >= len(o_d["keyframes"]) - 1
+              and gap_aligned < 1e-3 and abs(s - 1) < 1e-4
+              and all(abs(a["scale"] - 1) < 0.1 and a["ate_rmse"] < 0.05
+                      for a in (ate_d, ate_c)))
+        prob = o_d["problem"]
+        rec = {"phase": 13, "part": "oracle", "solver": solver,
+               "frames": n_frames, "points": n_pts,
+               "keyframes": len(o_d["keyframes"]),
+               "edges": len(o_d["edges"]),
+               "ba_points": None if prob is None else prob.points.shape[0],
+               "ate": ate_d, "ate_cpu": ate_c, "centre_gap_cpu": gap,
+               "centre_gap_cpu_aligned": gap_aligned,
+               "scale_to_cpu": s,
+               "ba_cost": o_d["ba_cost"], "ba_cost_cpu": o_c["ba_cost"],
+               "wall_s": wall_d, "wall_s_cpu": wall_c, "stages": st_d,
+               "ok": ok}
+        emit(rec, log)
+        check(ok, f"the oracle trajectory fails its bars: {rec}")
+
+
+def ba_scale_run(dev, log, C, P, O, noise=1e-3):
+    """Phase 13, part 3: BA at keyframe scale (``long_ba_problem``): one
+    ``ba_iteration`` dense and pcg on the card against the CPU, in float32
+    and float64; full ``bundle_adjust`` to the noise floor, twice (equal
+    bits); ms per LM iteration (events, profiled device ms), launches per
+    iteration, peak memory; ``reset_point_outliers`` against the CPU on the
+    adjusted map with planted outliers."""
+    import numpy as np
+    import torch
+    from loftr_tpu_torch.sfm import bundle_adjustment as ba
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    arrays, _, _ = long_ba_problem(C, P, O, noise, pose_noise=0.01,
+                                   point_noise=0.03, seed=0)
+    gen_s = time.perf_counter() - t0
+    p_dev = _ba_problem(arrays, dev)
+    p_cpu = _ba_problem(arrays, cpu)
+    p_64 = _ba_problem(arrays, cpu, torch.float64)
+    M = int((p_cpu.obs_w > 0).sum()) * 2
+    floor = M * noise ** 2
+    lam = 1e-4
+    for solver in ("dense", "pcg"):
+        plan = ba.BAPlan(p_dev.obs_cam, C, pairs=solver == "dense")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        card = ba.ba_iteration(p_dev, lam, solver=solver, plan=plan)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        t0 = time.perf_counter()
+        ref = ba.ba_iteration(p_cpu, lam, solver=solver)
+        cpu_s = time.perf_counter() - t0
+        f64 = ba.ba_iteration(p_64, lam, solver=solver)
+        errs = {k: (_rel(getattr(card[0], k), getattr(f64[0], k)),
+                    _rel(getattr(ref[0], k), getattr(f64[0], k)))
+                for k in ("R", "t", "points")}
+        cost_gap = [abs(float(a) - float(b)) / abs(float(b))
+                    for a, b in zip(card[1:], ref[1:])]
+        step_ok = (max(cost_gap) < 1e-5
+                   and all(e[0] <= 2 * e[1] + 1e-6 for e in errs.values()))
+
+        def step():
+            return ba.ba_iteration(p_dev, lam, solver=solver, plan=plan)
+
+        ms = cuda_ms(step, iters=5, warmup=1)
+        dms = device_ms(step, iters=3)
+        launches = kernel_launches(step)
+        t0 = time.perf_counter()
+        ba.BAPlan(p_dev.obs_cam, C, pairs=solver == "dense")
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs.append(ba.bundle_adjust(p_dev, max_iters=25, solver=solver))
+            runs[-1] += (time.perf_counter() - t0,)
+        same = (_equal_bits(runs[0][0], runs[1][0])
+                and runs[0][1] == runs[1][1])
+        rec = {"phase": 13, "part": "ba_scale", "solver": solver,
+               "C": C, "P": P, "O": O, "noise": noise,
+               "generate_s": gen_s, "old_cost": float(card[1]),
+               "new_cost": float(card[2]), "new_cost_cpu": float(ref[2]),
+               "cost_gap_cpu": cost_gap,
+               "err_to_float64_card_cpu": errs, "step_ok": step_ok,
+               "ms_per_iteration": ms,
+               "device_ms_per_iteration": None if dms is None
+               else dms["total"],
+               "device_top": None if dms is None else dict(sorted(
+                   ((k, v) for k, v in dms.items() if k != "total"),
+                   key=lambda kv: -kv[1])[:6]),
+               "launches_per_iteration": launches,
+               "plan_s": plan_s, "cpu_iteration_s": cpu_s,
+               "peak_mem_MiB": peak,
+               "final_cost": runs[0][1], "floor_3M_noise2": 3 * floor,
+               "loop_s": [r[2] for r in runs], "bit_equal_runs": same}
+        emit(rec, log)
+        check(step_ok, f"BA step {solver} disagrees with the CPU: {rec}")
+        check(same, f"two card runs of BA {solver} differ: {rec}")
+        check(runs[0][1] < 3 * floor,
+              f"BA {solver} misses the noise floor: {rec}")
+
+        if solver == "dense":
+            solved = runs[0][0]
+
+    # the outlier reset on the adjusted map, with 2% of its points dragged
+    # off by a gross outlier observation (run_sfm runs it after the Huber
+    # rounds)
+    rng = np.random.RandomState(1)
+    bad = rng.choice(P, P // 50, replace=False)
+    drag = {k: getattr(solved, k).cpu().numpy().copy() for k in arrays}
+    drag["obs_uv"][bad, 0] += rng.randn(len(bad), 2).astype(np.float32) * 0.25
+    drag["points"][bad] += rng.randn(len(bad), 3).astype(np.float32) * 0.5
+    r_dev = _ba_problem(drag, dev)
+    r_cpu = _ba_problem(drag, cpu)
+    thr = 0.005
+    planted = torch.zeros(P, O, dtype=torch.bool)
+    planted[torch.from_numpy(bad), 0] = True
+    # good observations beyond the gate by noise alone: a 2-d Gaussian
+    # residual of std ``noise`` exceeds thr with probability
+    # exp(-thr^2 / (2 noise^2)) (about 3 of the 800,000 at 5 noise)
+    n_good = int((~planted & (r_cpu.obs_w > 0)).sum())
+    good_expected = n_good * math.exp(-thr ** 2 / (2 * noise ** 2))
+    out = {}
+    for gn in (0, 8):
+        got = ba.reset_point_outliers(r_dev, thr, gn_iters=gn)
+        want = ba.reset_point_outliers(r_cpu, thr, gn_iters=gn)
+        zero = want.obs_w == 0
+        out[gn] = {
+            "gates_differ": int((got.obs_w.cpu() != want.obs_w).sum()),
+            "points_max_abs": float((got.points.cpu()
+                                     - want.points).abs().max()),
+            "planted_zeroed": int((zero & planted).sum()),
+            "good_zeroed": int((zero & ~planted).sum())}
+        if gn == 0:
+            # before the polish a point moves only where it switched to a
+            # two-view candidate; a candidate from keyframes 0.1 m apart at
+            # 7 m is ill conditioned, so its float32 value is reported, not
+            # held (the polish below is)
+            out[gn]["switches_differ"] = int(
+                ((got.points.cpu() != r_cpu.points).any(1)
+                 != (want.points != r_cpu.points).any(1)).sum())
+    ms = cuda_ms(lambda: ba.reset_point_outliers(r_dev, thr), iters=3,
+                 warmup=1)
+    again = ba.reset_point_outliers(r_dev, thr)
+    same = _equal_bits(again, ba.reset_point_outliers(r_dev, thr))
+    # after the polish: at least 95% of the planted outliers zeroed, and of
+    # the good observations no more than the noise's tail puts beyond the
+    # gate (bar: 10 against an expected ~3)
+    ok = (all(v["gates_differ"] == 0 for v in out.values())
+          and out[0]["switches_differ"] == 0
+          and out[8]["points_max_abs"] < 1e-4 and same
+          and out[8]["planted_zeroed"] >= 0.95 * len(bad)
+          and out[8]["good_zeroed"] <= max(10, 3 * good_expected))
+    rec = {"phase": 13, "part": "reset_outliers", "P": P,
+           "dragged": len(bad), "good_observations": n_good,
+           "good_beyond_gate_expected": good_expected, "by_gn_iters": out,
+           "ms": ms, "bit_equal_runs": same, "ok": ok}
+    emit(rec, log)
+    check(ok, f"reset_point_outliers disagrees with the CPU: {rec}")
+
+
+def sfm_path(dev, log, n_frames=60, hw=(H, W), oracle=(200, 2000),
+             big=(300, 100_000, 8)):
+    """Phase 13: the SfM CLI end to end (part 1, the main path: its launch
+    counts are returned), the backend on the oracle scene card against CPU
+    (part 2), BA at keyframe scale (part 3)."""
+    t_phase = time.perf_counter()
+    counts = sfm_cli_run(dev, log, n_frames, hw)
+    sfm_oracle_run(dev, log, *oracle)
+    ba_scale_run(dev, log, *big)
+    emit({"phase": 13, "wall_s": time.perf_counter() - t_phase}, log)
+    return counts
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13")
     ap.add_argument("--out", default=None,
                     help="also append the JSON lines to this file")
     args = ap.parse_args(argv)
@@ -3316,7 +3773,7 @@ def main(argv=None):
                 f"a bf16 pass of {src_name} spills: {ptxas}")
         results = {}
         main_counts = train_counts = ot_counts = cli_counts = None
-        serve_counts = None
+        serve_counts = sfm_counts = None
         with torch.no_grad():  # the inference phases carry no graph
             if 2 in phases:
                 kernel_checks(dev, log, results)
@@ -3352,6 +3809,8 @@ def main(argv=None):
         if 12 in phases:
             with torch.no_grad():
                 serve_counts = serve_path(dev, log)
+        if 13 in phases:
+            sfm_counts = sfm_path(dev, log)
         if results and None not in (main_counts, train_counts, ot_counts):
             pal = "loftr_tpu/ops/pallas/"
             src = {"coarse_layer": ("coarse_layer.cu", "coarse_layer.py:117"),
@@ -3398,6 +3857,11 @@ def main(argv=None):
                 for name in ("coarse_layer", "dual_softmax", "fine_stage"):
                     extra.setdefault(name, {})["serve_launches"] = \
                         serve_counts[name]
+            if sfm_counts is not None:
+                # phase 13's SfM CLI run: one match call a keyframe pair
+                for name in ("coarse_layer", "dual_softmax", "fine_stage"):
+                    extra.setdefault(name, {})["sfm_launches"] = \
+                        sfm_counts[name]
             optional = ("ms_forward", "ms_backward", "peak_mem_MiB",
                         "plain_peak_mem_MiB", "ms_prefilter",
                         "ms_1024_windows", "device_ms_1024_windows",

@@ -261,3 +261,53 @@ def make_synthetic_megadepth(out_dir: str, n_scenes: int = 3,
     with open(osp.join(out_dir, "index", "scene_list.txt"), "w") as fh:
         fh.write("\n".join(names) + "\n")
     return paths
+
+
+# ---------------------------------------------------------- scannet writer
+def write_scannet_sequence(out_dir: str, n_frames: int = 60,
+                           size: Tuple[int, int] = (640, 480),
+                           seed: int = 0) -> np.ndarray:
+    """Render a hand-held sweep over the heightfield and write it in the
+    ScanNet layout:
+
+      {out_dir}/color/{i}.jpg                     BGR JPEG (tinted gray)
+      {out_dir}/depth/{i}.png                     uint16 depth in mm
+      {out_dir}/pose/{i}.txt                      4x4 cam2world
+      {out_dir}/intrinsic/intrinsic_color.txt     4x4, K top-left
+
+    The cameras look +z from near z = 0 and move 0.04 world units a frame
+    along x with a slow sideways wobble, a slow yaw and a little tilt.
+    size is (W, H); the focal length is ScanNet's 577.87 px at 640x480,
+    scaled with W.  One thread a CPU core renders the frames.  Returns K."""
+    import cv2
+    from concurrent.futures import ThreadPoolExecutor
+
+    W, H = size
+    f = 577.87 * W / 640.0
+    K = np.array([[f, 0, W / 2.0], [0, f, H / 2.0], [0, 0, 1]], np.float64)
+    scene = HeightfieldScene(seed=seed + 10_000)
+    for d in ("color", "depth", "pose", "intrinsic"):
+        os.makedirs(osp.join(out_dir, d), exist_ok=True)
+    K4 = np.eye(4)
+    K4[:3, :3] = K
+    np.savetxt(osp.join(out_dir, "intrinsic", "intrinsic_color.txt"), K4,
+               delimiter=" ")
+    tint = np.array([0.9, 1.0, 1.1])
+
+    def write(i):
+        c2w = np.eye(4)
+        c2w[:3, :3] = (_rot(np.array([0.0, 0.0, 1.0]), np.deg2rad(0.15) * i)
+                       @ _rot(np.array([1.0, 0.0, 0.0]),
+                              0.05 * np.sin(i / 11.0)))
+        c2w[:3, 3] = [0.04 * i, 0.3 * np.sin(i / 15.0),
+                      0.05 * np.sin(i / 9.0)]
+        img, depth = scene.render(K, c2w, H, W)
+        bgr = np.clip(img[..., None] * tint * 255, 0, 255).astype(np.uint8)
+        cv2.imwrite(osp.join(out_dir, "color", f"{i}.jpg"), bgr)
+        cv2.imwrite(osp.join(out_dir, "depth", f"{i}.png"),
+                    np.round(depth * 1000).astype(np.uint16))
+        np.savetxt(osp.join(out_dir, "pose", f"{i}.txt"), c2w, delimiter=" ")
+
+    with ThreadPoolExecutor(os.cpu_count() or 1) as ex:
+        list(ex.map(write, range(n_frames)))
+    return K

@@ -21,7 +21,6 @@ The bfloat16 path keeps the flags as they are.
 """
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -35,6 +34,7 @@ from loftr_tpu_torch.structs import MatchInput, MatchResult
 from loftr_tpu_torch.supervision import coarse_supervision, fine_supervision
 from loftr_tpu_torch.train.optim import (build_optimizer, clip_by_global_norm,
                                          global_norm, lr_schedule)
+from loftr_tpu_torch.utils.precision import true_float32
 from loftr_tpu_torch.utils.weights import init_weights
 
 
@@ -45,24 +45,6 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     generator: torch.Generator              # match-selection randomness
     accum: Optional[List[torch.Tensor]] = None  # running mean of gradients
-
-
-@contextlib.contextmanager
-def true_float32(on: bool):
-    """cuDNN's and cuBLAS's TF32 off while the block runs, when ``on``;
-    the previous flags are restored afterwards."""
-    if not on:
-        yield
-        return
-    flags = torch.backends.cudnn, torch.backends.cuda.matmul
-    prev = tuple(f.allow_tf32 for f in flags)
-    for f in flags:
-        f.allow_tf32 = False
-    try:
-        yield
-    finally:
-        for f, p in zip(flags, prev):
-            f.allow_tf32 = p
 
 
 class Trainer:
