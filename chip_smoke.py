@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``loftr_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--phases 1,2,3,4,5,6,7,8,9,10,11,12,13] [--out FILE]
+    python3 chip_smoke.py [--phases 1,2,...,14] [--out FILE]
 
 Phases, each of which must pass (any failure exits non-zero):
   1. environment: card name and power limit, versions, kernel build time
@@ -122,6 +122,29 @@ Phases, each of which must pass (any failure exits non-zero):
      gates equal the CPU's, at least 95% of the planted outliers zeroed and
      no more good observations than the noise's tail puts beyond the gate
      (bar 10, ~3 expected).
+ 14. the parallel modules, on the one card: two ranks of a gloo group
+     (processes of this script, ``--rank``), the port's collectives on the
+     card's tensors, the all-gather and the ring staged through host memory
+     (gloo carries only broadcast and all-reduce for CUDA tensors; the
+     phase prints how often): the ``indoor_ds`` data-parallel
+     ``Trainer.train_step`` at 640x480, global B = 2 with one row a rank,
+     in float32 (TF32 off) and bf16, against the one-process B = 2 step
+     with the same weights and noise (losses, gradient norm, parameters
+     and running statistics, float32 at phase 5's bars; the summed
+     gradients reported; the ranks bit-equal; kernels B and D once a
+     rank), bf16 ms a step; one sharded BA
+     iteration at C = 300 / P = 100,000 / O = 8, dense and pcg, against
+     the one-process ``ba_iteration`` (costs within 1e-5, no further from
+     float64 than twice its step, cameras bit-equal across the ranks); the
+     token-sharded coarse stack at L = S = 4800 (float32), linear and
+     full, against the unsharded plain stack (1e-4 of the largest
+     output); the evaluator's merge of the two ranks' pairs against one
+     process (equal); then one NCCL rank: ``Trainer(group=...)``'s step
+     equal bit for bit to the step without a group, under deterministic
+     algorithms; then ``MatchingService(mesh=...)`` with a one-device
+     mesh: a rung-1 response equal to ``match_pair``, 16 requests from 4
+     clients held to it as phase 12 holds them.  Every item prints the
+     card's name and power limit.
 Each main path (one ``match_pair`` call of each preset; the 8 training
 steps; the two switch runs; the CLI's ``batched`` run; the train CLI's
 first run; the service's 64 requests; the SfM CLI's run) runs with every
@@ -1634,22 +1657,23 @@ def flagship_bf16(dev, log, phase=4, preset="indoor_ds",
 # phases 5 and 6: training
 # --------------------------------------------------------------------------
 
-def train_batch(seed, batch):
+def train_batch(seed, batch, hw=(H, W)):
     """A seeded training batch: random images, depth in [1, 3], identity
     pose and a pinhole K, so the coarse ground truth is the diagonal."""
     import numpy as np
     import torch
     from loftr_tpu_torch.structs import MatchInput
+    h, w = hw
     rng = np.random.RandomState(seed)
-    K = np.array([[[500.0, 0, W / 2], [0, 500.0, H / 2], [0, 0, 1]]] * batch,
+    K = np.array([[[500.0, 0, w / 2], [0, 500.0, h / 2], [0, 0, 1]]] * batch,
                  np.float32)
     T = np.tile(np.eye(4, dtype=np.float32), (batch, 1, 1))
     t = torch.from_numpy
     return MatchInput(
-        image0=t(rng.rand(batch, H, W, 1).astype(np.float32)),
-        image1=t(rng.rand(batch, H, W, 1).astype(np.float32)),
-        depth0=t((rng.rand(batch, H, W) * 2 + 1).astype(np.float32)),
-        depth1=t((rng.rand(batch, H, W) * 2 + 1).astype(np.float32)),
+        image0=t(rng.rand(batch, h, w, 1).astype(np.float32)),
+        image1=t(rng.rand(batch, h, w, 1).astype(np.float32)),
+        depth0=t((rng.rand(batch, h, w) * 2 + 1).astype(np.float32)),
+        depth1=t((rng.rand(batch, h, w) * 2 + 1).astype(np.float32)),
         T_0to1=t(T), T_1to0=t(T.copy()), K0=t(K), K1=t(K.copy()))
 
 
@@ -1706,41 +1730,16 @@ def train_step_fp32(dev, log):
     rel = {k: abs(card["scalars"][k] - cpu["scalars"][k])
            / max(abs(cpu["scalars"][k]), 1e-30)
            for k in ("loss", "loss_c", "loss_f", "grad_norm")}
-    # parameters: Adam's first step moves an element by lr * sign(g), so
-    # an element whose gradient is rounding noise may differ by 2 lr;
-    # all others agree far below one lr.  Running statistics: float32
-    # means of the same activations and of their squares.
-    worst, n_far, n_all, stat_err, stat_key = 0.0, 0, 0, 0.0, None
-    moved = 0.0
-    for k, a in card["after"].items():
-        b = cpu["after"][k]
-        if k.endswith("num_batches_tracked"):
-            continue
-        d = (a - b).abs()
-        if k.endswith(("running_mean", "running_var")):
-            # this step's batch statistics, recovered from the running
-            # ones.  The variance is E[x^2] - E[x]^2 in float32, so what
-            # the two devices' sums carry is the second moment: errors
-            # are taken against it (the mean against its square root).
-            base = k.rsplit(".", 1)[0]
-            mom = 0.1
-            bm, bv = ((cpu["after"][base + "." + s_] - (1 - mom)
-                       * cpu["before"][base + "." + s_]) / mom
-                      for s_ in ("running_mean", "running_var"))
-            m2 = bv + bm * bm
-            scale = m2 if k.endswith("running_var") else m2.sqrt()
-            e = float((d / mom / scale.clamp_min(1e-12)).max())
-            if e > stat_err:
-                stat_err, stat_key = e, k
-            continue
-        worst = max(worst, float(d.max()))
-        n_far += int((d > 0.5 * lr).sum())
-        n_all += d.numel()
-        moved = max(moved, float((a - card["before"][k]).abs().max()))
+    worst, far, stat_err, stat_key = _moved_apart(
+        card["after"], cpu["after"], cpu["before"], lr)
+    moved = max(float((a - card["before"][k]).abs().max())
+                for k, a in card["after"].items()
+                if not k.endswith(("num_batches_tracked", "running_mean",
+                                   "running_var")))
     rec = {"phase": 5, "scalars_card": card["scalars"],
            "scalars_cpu": cpu["scalars"], "rel_err": rel,
            "param_max_abs_diff": worst, "lr": lr,
-           "param_frac_beyond_half_lr": n_far / n_all,
+           "param_frac_beyond_half_lr": far,
            "param_max_update": moved, "running_stat_max_rel_err": stat_err,
            "running_stat_worst": stat_key,
            "card_step_s": card["seconds"], "cpu_step_s": cpu["seconds"],
@@ -1750,7 +1749,7 @@ def train_step_fp32(dev, log):
     # between two float32 convolution libraries (2e-2)
     rec["ok"] = (rel["loss"] <= 1e-3 and rel["loss_c"] <= 1e-3
                  and rel["loss_f"] <= 1e-3 and rel["grad_norm"] <= 2e-2
-                 and worst <= 2.2 * lr and n_far / n_all <= 0.05
+                 and worst <= 2.2 * lr and far <= 0.05
                  and moved >= 0.5 * lr and stat_err <= 1e-3)
     emit(rec, log)
     check(rec["ok"], f"fp32 train step: card and CPU disagree: {rec}")
@@ -3711,9 +3710,674 @@ def sfm_path(dev, log, n_frames=60, hw=(H, W), oracle=(200, 2000),
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 14: the parallel modules
+# --------------------------------------------------------------------------
+
+# a phase-14 rank must finish within this many seconds of its start
+RANK_TIMEOUT = 300
+
+
+def spawn_ranks(item, world, work, env=None, timeout=RANK_TIMEOUT):
+    """Run ``world`` ranks of ``item`` (``chip_smoke.py --rank``), each a
+    process with torchrun's variables and a ``file://`` store under
+    ``work``; wait for all of them.  A rank that fails or runs past
+    ``timeout`` fails the phase (every rank is killed first).  Returns the
+    ranks' records and the wall seconds."""
+    import torch
+    store = os.path.join(work, f"store_{item}")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", item, work],
+        env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                 LOCAL_RANK="0", LOFTR_INIT_METHOD="file://" + store,
+                 **(env or {})),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=REPO) for r in range(world)]
+    deadline = time.time() + timeout
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.time()))[0])
+    except subprocess.TimeoutExpired:
+        outs = []
+        for p in procs:
+            p.kill()
+            outs.append(p.communicate()[0])
+        check(False, f"phase 14 {item}: ranks ran past {timeout} s:\n"
+              + "\n".join(o[-4000:] for o in outs))
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0,
+              f"phase 14 {item}: rank {r} exited {p.returncode}:\n"
+              f"{out[-8000:]}")
+    return ([torch.load(os.path.join(work, f"{item}_{r}.pt"),
+                        weights_only=False) for r in range(world)],
+            time.perf_counter() - t0)
+
+
+def rank_main(item, work):
+    """One rank of phase 14 (``chip_smoke.py --rank ITEM WORK``): joins the
+    process group from the environment (``parallel.mesh.
+    init_process_group``: gloo for the two-rank items, NCCL for ``nccl``),
+    runs ``ITEM`` and saves its record under ``WORK``."""
+    import torch
+    sys.path.insert(0, REPO)
+    from loftr_tpu_torch.parallel.mesh import init_process_group
+    spec = torch.load(os.path.join(work, "spec.pt"), weights_only=False)
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    backend = spec["nccl_backend"] if item == "nccl" else "gloo"
+    rank, world = init_process_group(dev, backend=backend)
+    try:
+        rec = {"gloo": rank_gloo, "nccl": rank_nccl}[item](dev, spec, rank)
+        torch.save(rec, os.path.join(work, f"{item}_{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _cpu(sd):
+    """A copy on the host (``.cpu()`` alone aliases a CPU tensor)."""
+    return {k: v.detach().cpu().clone() for k, v in sd.items()}
+
+
+def rank_gloo(dev, spec, rank):
+    """A rank of the two-rank gloo group: the data-parallel train step, the
+    sharded BA iteration, the token-sharded coarse stack and the evaluator
+    merge, each timed."""
+    import torch
+    from loftr_tpu_torch.models.matcher import LoFTR
+    from loftr_tpu_torch.models.transformer import LocalFeatureTransformer
+    from loftr_tpu_torch.parallel import comm
+    from loftr_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from loftr_tpu_torch.parallel.seq_attention import sharded_coarse_stack
+    from loftr_tpu_torch.sfm import bundle_adjustment as ba
+    from loftr_tpu_torch.train.trainer import Trainer
+    from loftr_tpu_torch.utils.weights import init_weights
+    mesh = make_mesh()
+    group = mesh.group("data")
+    rec = {}
+
+    # 1. the data-parallel train step in float32 (the exact check) and
+    # bf16 (the main path, timed), the gradients recorded; rank 1 starts
+    # from other weights, replicate gives it rank 0's
+    tr = spec["train"]
+    batch = shard_batch(mesh, tr["batch"])
+    noise = {k: v.to(dev) for k, v in tr["noise"].items()}
+    rec["train"] = {}
+    for dt, cfg in tr["cfg"].items():
+        trainer = Trainer(cfg, world_size=2, batch_size_per_device=1,
+                          device=dev)
+        other = None
+        if rank:
+            m = LoFTR(cfg.loftr)
+            init_weights(m, 1)
+            other = m.state_dict()
+        state = trainer.init_state(seed=0, state_dict=other)
+        start = all(torch.equal(v.cpu(), tr["init"][k])
+                    for k, v in state.module.state_dict().items())
+        grads = recording_grads(trainer, state)
+        reset_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, sc = trainer.train_step(state, batch, noise)
+        _sync(dev)
+        r = rec["train"][dt] = {
+            "start_is_rank0": start, "counts": read_counts(),
+            "scalars": {k: float(v) for k, v in sc.items()},
+            "after": _cpu(state.module.state_dict()), "grads": grads,
+            "first_step_s": time.perf_counter() - t0}
+        if dt == "bfloat16":
+            ms = []
+            for _ in range(tr["timed_steps"]):
+                _sync(dev)
+                t0 = time.perf_counter()
+                trainer.train_step(state, batch)
+                _sync(dev)
+                ms.append(1e3 * (time.perf_counter() - t0))
+            r["step_ms"] = ms
+        del state, trainer
+
+    # 2. one sharded LM iteration, dense and pcg
+    bs = spec["ba"]
+    prob = ba.shard_problem(_ba_problem(bs["arrays"], dev), mesh)
+    rec["ba"] = {}
+    for solver in ("dense", "pcg"):
+        step = ba.make_sharded_ba_iteration(mesh, "data", solver)
+        plan = ba.BAPlan(prob.obs_cam, prob.n_cams, pairs=solver == "dense")
+        new, old_c, new_c = step(prob, bs["lam"], plan)
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(bs["timed"]):
+            step(prob, bs["lam"], plan)
+        _sync(dev)
+        rec["ba"][solver] = {
+            "R": new.R.cpu(), "t": new.t.cpu(), "points": new.points.cpu(),
+            "old": float(old_c), "new": float(new_c),
+            "ms": 1e3 * (time.perf_counter() - t0) / bs["timed"]}
+    del prob
+
+    # 3. the coarse stack with its tokens sharded, linear and full
+    sq = spec["seq"]
+    rec["seq"] = {}
+    for kind in ("linear", "full"):
+        stack = LocalFeatureTransformer(sq["d"], sq["h"], sq["names"], kind)
+        stack.load_state_dict(sq["state_" + kind])
+        stack = stack.to(dev).eval()
+        f0, f1 = (sq[n].to(dev) for n in ("f0", "f1"))
+        staged0 = dict(comm.STAGED)
+        with torch.no_grad():
+            c0, c1 = sharded_coarse_stack(stack, f0, f1, None, None,
+                                          "concat", group)
+            staged = {k: comm.STAGED[k] - staged0[k] for k in staged0}
+            _sync(dev)
+            t0 = time.perf_counter()
+            for _ in range(sq["timed"]):
+                sharded_coarse_stack(stack, f0, f1, None, None, "concat",
+                                     group)
+            _sync(dev)
+        rec["seq"][kind] = {"c0": c0.cpu(), "c1": c1.cpu(),
+                            "staged": staged,
+                            "ms": 1e3 * (time.perf_counter() - t0)
+                            / sq["timed"]}
+
+    # 4. the evaluator over this rank's pairs, merged across the ranks
+    ev = spec["eval"]
+    t0 = time.perf_counter()
+    rec["eval"] = {"metrics": _evaluator(ev, dev).evaluate_dataset(
+        _eval_dataset(ev), batch_size=1, num_workers=0, world_size=2,
+        rank=rank), "s": time.perf_counter() - t0}
+    return rec
+
+
+def recording_grads(trainer, state):
+    """A dict that the trainer's next step fills with the gradients it
+    applies (after the sum over the ranks), by name, on the host."""
+    out = {}
+    names = [n for n, _ in state.module.named_parameters()]
+    apply = trainer.apply_gradients
+
+    def recording(st, grads):
+        out.update({n: g.detach().cpu().clone()
+                    for n, g in zip(names, grads)})
+        return apply(st, grads)
+
+    trainer.apply_gradients = recording
+    return out
+
+
+def rank_nccl(dev, spec, rank):
+    """The one-rank NCCL group: the data-parallel step (``Trainer(group=)``)
+    against the step without a group, from the same weights, batch and
+    noise, under deterministic algorithms (cuDNN's, a fixed cuBLAS
+    workspace), so that two runs of one step give equal bits."""
+    import torch
+    from loftr_tpu_torch.train.trainer import Trainer
+    tr = spec["train"]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    out = {}
+    for name, group in (("plain", None),
+                        ("group", torch.distributed.group.WORLD)):
+        trainer = Trainer(tr["cfg"]["bfloat16"], batch_size_per_device=2,
+                          device=dev, group=group)
+        state = trainer.init_state(seed=0)
+        noise = {k: v.to(dev) for k, v in tr["noise"].items()}
+        reset_counts()
+        state, sc = trainer.train_step(state, tr["batch"], noise)
+        _sync(dev)
+        out[name] = {"scalars": {k: float(v) for k, v in sc.items()},
+                     "after": _cpu(state.module.state_dict()),
+                     "counts": read_counts()}
+        del state, trainer
+    out["backend"] = torch.distributed.get_backend()
+    return out
+
+
+def _eval_dataset(ev):
+    from loftr_tpu_torch.data.megadepth import MegaDepthDataset
+    from loftr_tpu_torch.data.sampler import ConcatDataset
+    return ConcatDataset([MegaDepthDataset(
+        ev["root"], n, mode="test", img_resize=ev["size"], df=8,
+        img_padding=True) for n in ev["npz"]])
+
+
+def _evaluator(ev, dev):
+    from loftr_tpu_torch.eval.evaluator import Evaluator
+    from loftr_tpu_torch.models.matcher import LoFTR
+    model = LoFTR(ev["cfg"].loftr)
+    model.load_state_dict(ev["state"])
+    return Evaluator(ev["cfg"], model.to(dev), pose_solver="native",
+                     device=dev)
+
+
+def _moved_apart(after, want, before, lr):
+    """Two states after one step from the state ``before`` (``want`` the
+    reference): the parameters' largest difference and the share of their
+    elements beyond half a learning rate (Adam's first step moves an
+    element by lr * sign(g), so an element whose gradient is rounding noise
+    may differ by 2 lr; all others agree far below one lr), and the running
+    statistics' largest difference with the key that holds it.  Those are
+    this step's batch statistics, recovered from the running ones; the
+    variance is E[x^2] - E[x]^2 in float32, so what the two sums carry is
+    the second moment: errors are taken against it (the mean's against its
+    square root)."""
+    worst, far, n, stat, stat_key = 0.0, 0, 0, 0.0, None
+    for k, a in after.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        d = (a.double() - want[k].double()).abs()
+        if k.endswith(("running_mean", "running_var")):
+            base = k.rsplit(".", 1)[0]
+            mom = 0.1
+            bm, bv = ((want[base + "." + s_].double() - (1 - mom)
+                       * before[base + "." + s_].double()) / mom
+                      for s_ in ("running_mean", "running_var"))
+            m2 = bv + bm * bm
+            scale = m2 if k.endswith("running_var") else m2.sqrt()
+            e = float((d / mom / scale.clamp_min(1e-12)).max())
+            if e > stat:
+                stat, stat_key = e, k
+            continue
+        worst = max(worst, float(d.max()))
+        far += int((d > 0.5 * lr).sum())
+        n += d.numel()
+    return worst, far / max(n, 1), stat, stat_key
+
+
+def mesh_service_run(dev, log, smi, hw=(H, W), n_requests=16):
+    """Phase 14, the service across devices: ``MatchingService(mesh=...)``
+    with a one-device mesh (the card's one replica; rungs 1, 2, 4;
+    interleave packing) on ``indoor_ds`` bf16 seeded weights, thr 0, uint8
+    wire.  One request equal to ``match_pair`` exactly; ``n_requests``
+    from 4 clients, each held to ``match_pair`` of its pair as phase 12
+    holds them (the near-tie rule, mconf within the bf16 floor); kernels
+    A-C launched.  Returns the launch counts of the requests."""
+    import threading
+    import numpy as np
+    import torch
+    from loftr_tpu_torch.api import load_matcher, match_pair, with_config
+    from loftr_tpu_torch.parallel.mesh import local_device_mesh
+    from loftr_tpu_torch.serve import MatchingService
+
+    thr0 = {"match_coarse": {"thr": 0.0}}
+    base = load_matcher(seed=0, device=dev)
+    sd = {k: v.detach().cpu() for k, v in base.state_dict().items()}
+    fast = with_config(base, {"dtype": "bfloat16", **thr0})
+    plain = with_config(fast, {"match_coarse": {"use_pallas": False}})
+    svc = MatchingService(sd, overrides={"loftr": thr0}, buckets=(hw,),
+                          batch_sizes=(1, 2, 4), flush_ms=5.0,
+                          wire_dtype="uint8", mesh=local_device_mesh([dev]))
+    try:
+        check(svc.config.loftr.batch_packing == "interleave"
+              and svc.devices == [dev], "the meshed service's setup")
+        svc.warmup()
+        pairs = [images_hw(40 + k, *hw) for k in range(4)]
+        oracle = [(match_pair(p0, p1, fast),
+                   match_pair(p0, p1, fast, dtype="float32"))
+                  for p0, p1 in pairs]
+        one = svc.match(*pairs[0])
+        exact = all(np.array_equal(one[k], oracle[0][0][k]) for k in one)
+        results = [None] * n_requests
+        svc.stats.reset()
+        _sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+
+        def client(c):
+            for r in range(c, n_requests, 4):
+                results[r] = svc.submit(*pairs[r % 4]).result(timeout=300)
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        snap = svc.stats.snapshot()
+    finally:
+        svc.close()
+    odd, errs, floor = 0, [], []
+    for k, (p0, p1) in enumerate(pairs):
+        from loftr_tpu_torch.structs import MatchInput
+        inp = MatchInput(
+            image0=torch.from_numpy(p0[None, :, :, None]
+                                    / np.float32(255)).to(dev),
+            image1=torch.from_numpy(p1[None, :, :, None]
+                                    / np.float32(255)).to(dev))
+        with torch.no_grad():
+            conf = plain(inp).conf_matrix[0].float()
+        h = hold_responses(results[k::4], *oracle[k], conf, p0.shape[1] // 8)
+        odd += len(h[0])
+        errs += h[1]
+        floor += h[2]
+    ok = (exact and one["mconf"].shape[0] > 0 and odd == 0 and errs
+          and float(np.mean(errs)) <= float(np.mean(floor))
+          and min(counts[k] for k in ("coarse_layer", "dual_softmax",
+                                      "fine_stage")) > 0)
+    rec = {"phase": 14, "part": "mesh_service", "nvidia_smi": smi,
+           "devices": [str(d) for d in svc.devices],
+           "batch_sizes": list(svc.batch_sizes),
+           "one_request_exact": exact, "requests": n_requests,
+           "odd_matches": odd, "matches_both": len(errs),
+           "mconf_err": float(np.mean(errs)) if errs else None,
+           "mconf_floor": float(np.mean(floor)) if floor else None,
+           "batch_hist": snap["batch_hist"], "pairs_per_s":
+           n_requests / wall, "latency_ms_p50": snap["latency_ms_p50"],
+           "launches": counts, "ok": bool(ok)}
+    emit(rec, log)
+    check(ok, f"the meshed service's responses disagree: {rec}")
+    return counts
+
+
+def parallel_path(dev, log, smi, hw=(H, W), train_overrides=None,
+                  ba_size=(300, 100_000, 8), seq_len=4800, eval_size=256,
+                  eval_overrides=None, nccl_backend="nccl"):
+    """Phase 14: the parallel modules on one card.  The single-process
+    references first (the B=2 train step, ``ba_iteration`` dense and pcg
+    and its float64 twin, the unsharded coarse stack, ``evaluate_dataset``
+    in one process), then two gloo ranks on the card (train step, sharded
+    BA, token-sharded stack, evaluator merge), then one NCCL rank (its
+    data-parallel step against the plain one, bit for bit).  Returns the
+    kernel launch counts of rank 0's train step."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from loftr_tpu_torch.config import get_config
+    from loftr_tpu_torch.data.synthetic import make_synthetic_megadepth
+    from loftr_tpu_torch.models.transformer import LocalFeatureTransformer
+    from loftr_tpu_torch.ops.matching import draw_select_noise
+    from loftr_tpu_torch.sfm import bundle_adjustment as ba
+    from loftr_tpu_torch.train.trainer import Trainer
+    from loftr_tpu_torch.utils.weights import init_weights
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="loftr_phase14_")
+    try:
+        # --- the train step: B = 2 in one process, bf16 and float32
+        cfgs = {dt: train_config(dt, 2) for dt in ("float32", "bfloat16")}
+        if train_overrides:
+            cfgs = {k: v.replaced(train_overrides) for k, v in cfgs.items()}
+        batch = train_batch(7, 2, hw)
+        L = (hw[0] // 8) * (hw[1] // 8)
+        mc = cfgs["bfloat16"].loftr.match_coarse
+        k_train = mc.train_matches or int(mc.train_coarse_percent * L)
+        noise = draw_select_noise(2, L, k_train, mc.train_sampling,
+                                  torch.Generator().manual_seed(7), "cpu")
+        one = {}
+        for dt, cfg in cfgs.items():
+            trainer = Trainer(cfg, batch_size_per_device=2, device=dev)
+            state = trainer.init_state(seed=0)
+            init = _cpu(state.module.state_dict())
+            grads = recording_grads(trainer, state)
+            reset_counts()
+            state, sc = trainer.train_step(
+                state, batch, {k: v.to(dev) for k, v in noise.items()})
+            _sync(dev)
+            one[dt] = {"scalars": {k: float(v) for k, v in sc.items()},
+                       "after": _cpu(state.module.state_dict()),
+                       "grads": grads, "counts": read_counts()}
+            del state, trainer
+
+        # --- BA at keyframe scale: one iteration, float32 and float64
+        C, P, O = ba_size
+        arrays, _, _ = long_ba_problem(C, P, O, 1e-3, pose_noise=0.01,
+                                       point_noise=0.03, seed=0)
+        lam = 1e-4
+        p32 = _ba_problem(arrays, dev)
+        p64 = _ba_problem(arrays, dev, torch.float64)
+        ba_one = {}
+        for solver in ("dense", "pcg"):
+            plan = ba.BAPlan(p32.obs_cam, C, pairs=solver == "dense")
+            r32 = ba.ba_iteration(p32, lam, solver=solver, plan=plan)
+            r64 = ba.ba_iteration(p64, lam, solver=solver, plan=plan)
+            ms = cuda_ms(lambda: ba.ba_iteration(
+                p32, lam, solver=solver, plan=plan), iters=3, warmup=0) \
+                if dev.type == "cuda" else None
+            ba_one[solver] = {"f32": r32, "f64": r64, "ms": ms}
+        del p32, p64
+
+        # --- the coarse stack, unsharded (float32, TF32 off)
+        g = torch.Generator().manual_seed(5)
+        c = cfg.loftr.coarse
+        f0 = torch.randn((1, seq_len, c.d_model), generator=g)
+        f1 = torch.randn((1, seq_len, c.d_model), generator=g)
+        seq = {"d": c.d_model, "h": c.nhead, "names": c.layer_names,
+               "f0": f0, "f1": f1, "timed": 3}
+        seq_one = {}
+        for kind in ("linear", "full"):
+            torch.manual_seed(11)
+            stack = LocalFeatureTransformer(c.d_model, c.nhead,
+                                            c.layer_names, kind)
+            seq["state_" + kind] = _cpu(stack.state_dict())
+            stack = stack.to(dev).eval()
+            d0, d1 = f0.to(dev), f1.to(dev)
+            with torch.no_grad():
+                r = stack(d0, d1)
+                ms = cuda_ms(lambda: stack(d0, d1), iters=3, warmup=0) \
+                    if dev.type == "cuda" else None
+            seq_one[kind] = {"c0": r[0].cpu(), "c1": r[1].cpu(), "ms": ms}
+            del stack, r, d0, d1
+
+        # --- the evaluator in one process
+        root = os.path.join(work, "synth")
+        npz = make_synthetic_megadepth(root, n_scenes=2, n_views=3,
+                                       img_size=eval_size, seed=4,
+                                       depth_format="npy")
+        ecfg = get_config("outdoor_ds", eval_overrides or {"loftr": {
+            "dtype": "bfloat16", "match_coarse": {"thr": 0.0}}})
+        from loftr_tpu_torch.models.matcher import LoFTR
+        em = LoFTR(ecfg.loftr)
+        init_weights(em, 3)
+        ev = {"cfg": ecfg, "state": em.state_dict(), "root": root,
+              "npz": sorted(npz), "size": eval_size}
+        t0 = time.perf_counter()
+        eval_one = _evaluator(ev, dev).evaluate_dataset(
+            _eval_dataset(ev), batch_size=1, num_workers=0)
+        eval_one_s = time.perf_counter() - t0
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+        torch.save({"device": str(dev), "nccl_backend": nccl_backend,
+                    "train": {"cfg": cfgs, "init": init, "batch": batch,
+                              "noise": noise, "timed_steps": 3},
+                    "ba": {"arrays": arrays, "lam": lam, "timed": 3},
+                    "seq": seq, "eval": ev}, os.path.join(work, "spec.pt"))
+
+        # --- two gloo ranks on the card
+        recs, gloo_s = spawn_ranks("gloo", 2, work)
+        for dt in cfgs:
+            a, b = (r["train"][dt] for r in recs)
+            want = one[dt]
+            lr = want["scalars"]["lr"]
+            rel = {k: abs(a["scalars"][k] - want["scalars"][k])
+                   / max(abs(want["scalars"][k]), 1e-30)
+                   for k in ("loss", "loss_c", "loss_f", "grad_norm")}
+            worst, far, stat, _ = _moved_apart(a["after"], want["after"],
+                                               init, lr)
+            ranks_equal = (a["scalars"] == b["scalars"] and all(
+                torch.equal(v, b["after"][k])
+                for k, v in a["after"].items()))
+            for r in (a, b):
+                expect_counts(r["counts"], dual_softmax=1,
+                              focal_loss_forward=1, focal_loss_backward=1)
+            # the summed gradients against one process's, by tensor (of
+            # its largest entry), and the largest difference after Adam's
+            # first update where the gradient's sign looks determined
+            # (above 1e-3 of the largest): reported.  A ReLU input within
+            # rounding of 0 takes the other side when cuDNN runs another
+            # algorithm (batch 2 packed against 4), which moves gradients
+            # near it by their own size (phase 5 meets the same between
+            # card and CPU)
+            g_err, sure_err, g_worst = 0.0, 0.0, None
+            for k, w in want["grads"].items():
+                e = float((a["grads"][k] - w).abs().max()
+                          / w.abs().max().clamp_min(1e-30))
+                if e > g_err:
+                    g_err, g_worst = e, (k, float(w.abs().max()))
+                sure = w.abs() > 1e-3 * w.abs().max()
+                d = (a["after"][k] - want["after"][k]).abs()[sure]
+                if d.numel():
+                    sure_err = max(sure_err, float(d.max()))
+            if dt == "float32":
+                # TF32 off: phase 5's float32 bars (card against CPU)
+                ok = (max(rel["loss"], rel["loss_c"], rel["loss_f"]) <= 1e-3
+                      and rel["grad_norm"] <= 2e-2 and worst <= 2.2 * lr
+                      and far <= 0.05 and stat <= 1e-3)
+            else:
+                # bf16 rounds every product, and the ranks' convolutions
+                # run at another batch size than one process's: a sum of
+                # many cancelling bf16 terms (BatchNorm's bias gradients)
+                # carries noise beyond its own size, and an element whose
+                # gradient is noise moves +-lr either way under Adam: the
+                # share beyond half a rate is reported, held in float32
+                ok = (max(rel["loss"], rel["loss_c"], rel["loss_f"]) <= 1e-2
+                      and rel["grad_norm"] <= 5e-2 and worst <= 2.2 * lr
+                      and stat <= 1e-2)
+            ok = (ok and a["start_is_rank0"] and b["start_is_rank0"]
+                  and ranks_equal)
+            rec = {"phase": 14, "part": "dp_train_step", "nvidia_smi": smi,
+                   "backend": "gloo", "ranks": 2, "global_batch": 2,
+                   "hw": list(hw), "dtype": dt,
+                   "rel_err_vs_one_process": rel,
+                   "grad_max_err_of_tensor_max": g_err,
+                   "grad_worst_tensor_and_max": g_worst,
+                   "param_max_diff_sign_determined": sure_err,
+                   "param_max_abs_diff": worst, "lr": lr,
+                   "param_frac_beyond_half_lr": far,
+                   "running_stat_max_rel_err": stat,
+                   "ranks_bit_equal": ranks_equal,
+                   "launches_rank0": a["counts"],
+                   "launches_rank1": b["counts"],
+                   "launches_one_process": want["counts"],
+                   "first_step_s": [a["first_step_s"], b["first_step_s"]],
+                   "ok": ok}
+            if dt == "bfloat16":
+                rec.update(step_ms_rank0=a["step_ms"],
+                           step_ms_rank1=b["step_ms"],
+                           note="two ranks share one card: their steps "
+                                "overlap")
+            emit(rec, log)
+            check(ok, f"the data-parallel step disagrees: {rec}")
+        dp_counts = recs[0]["train"]["bfloat16"]["counts"]
+
+        for solver in ("dense", "pcg"):
+            ra, rb = (r["ba"][solver] for r in recs)
+            r32, r64 = ba_one[solver]["f32"], ba_one[solver]["f64"]
+            cams_equal = (torch.equal(ra["R"], rb["R"])
+                          and torch.equal(ra["t"], rb["t"])
+                          and ra["old"] == rb["old"]
+                          and ra["new"] == rb["new"])
+            pts = torch.cat([ra["points"], rb["points"]])
+            errs = {"R": (_rel(ra["R"], r64[0].R), _rel(r32[0].R, r64[0].R)),
+                    "t": (_rel(ra["t"], r64[0].t), _rel(r32[0].t, r64[0].t)),
+                    "points": (_rel(pts, r64[0].points),
+                               _rel(r32[0].points, r64[0].points))}
+            gap = [abs(ra["old"] - float(r32[1])) / abs(float(r32[1])),
+                   abs(ra["new"] - float(r32[2])) / abs(float(r32[2]))]
+            # the costs as phase 13 holds card and CPU; the state no
+            # further from float64 than twice the single process's step
+            ok = (cams_equal and max(gap) < 1e-5
+                  and all(e[0] <= 2 * e[1] + 1e-6 for e in errs.values()))
+            rec = {"phase": 14, "part": "sharded_ba", "nvidia_smi": smi,
+                   "solver": solver, "C": C, "P": P, "O": O, "ranks": 2,
+                   "cost_gap_vs_one_process": gap,
+                   "err_to_float64_sharded_one": errs,
+                   "cameras_bit_equal_across_ranks": cams_equal,
+                   "ms_per_iteration_ranks": [ra["ms"], rb["ms"]],
+                   "ms_per_iteration_one_process": ba_one[solver]["ms"],
+                   "ok": ok}
+            emit(rec, log)
+            check(ok, f"the sharded BA disagrees: {rec}")
+
+        for kind in ("linear", "full"):
+            want = seq_one[kind]
+            errs = []
+            for r in recs:
+                got = r["seq"][kind]
+                for k in ("c0", "c1"):
+                    errs.append(float((got[k] - want[k]).abs().max()
+                                      / want[k].abs().max()))
+            staged = [r["seq"][kind]["staged"] for r in recs]
+            # float32: the ranks' key sums (linear) or online softmax
+            # (full) in another order, through 8 layers
+            ok = max(errs) <= 1e-4
+            rec = {"phase": 14, "part": "seq_sharded_stack",
+                   "nvidia_smi": smi, "attention": kind, "L": seq_len,
+                   "S": seq_len, "d_model": seq["d"], "layers":
+                   len(seq["names"]), "dtype": "float32", "ranks": 2,
+                   "max_rel_err_vs_unsharded": max(errs),
+                   "staged_through_host": staged,
+                   "ms_ranks": [r["seq"][kind]["ms"] for r in recs],
+                   "ms_unsharded": want["ms"], "ok": ok}
+            emit(rec, log)
+            check(ok, f"the token-sharded stack disagrees: {rec}")
+            # gloo carries all-gather and point-to-point for CPU tensors
+            # only: on the card both go through host memory
+            check(dev.type != "cuda" or all(
+                s["all_gather"] > 0 and (kind == "linear"
+                                         or s["ring_shift"] > 0)
+                for s in staged), f"the card's exchanges were not staged: "
+                f"{staged}")
+
+        got = [r["eval"]["metrics"] for r in recs]
+        ok = all(set(m) == set(eval_one) and all(
+            math.isclose(m[k], eval_one[k], rel_tol=1e-12, abs_tol=1e-15)
+            for k in eval_one) for m in got)
+        rec = {"phase": 14, "part": "evaluator_merge", "nvidia_smi": smi,
+               "pairs": len(_eval_dataset(ev)), "ranks": 2,
+               "metrics_one_process": eval_one, "metrics_ranks": got,
+               "s_ranks": [r["eval"]["s"] for r in recs],
+               "s_one_process": eval_one_s, "ok": ok}
+        emit(rec, log)
+        check(ok, f"the evaluator merge differs from one process: {rec}")
+
+        # --- one NCCL rank: the data-parallel step equals the plain one
+        (n,), nccl_s = spawn_ranks("nccl", 1, work, env={
+            "CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+        same = (n["plain"]["scalars"] == n["group"]["scalars"] and all(
+            torch.equal(v, n["group"]["after"][k])
+            for k, v in n["plain"]["after"].items()))
+        expect_counts(n["group"]["counts"], dual_softmax=1,
+                      focal_loss_forward=1, focal_loss_backward=1)
+        rec = {"phase": 14, "part": "nccl_one_rank", "nvidia_smi": smi,
+               "backend": n["backend"], "bit_equal_to_plain_step": same,
+               "scalars": n["group"]["scalars"],
+               "launches": n["group"]["counts"], "wall_s": nccl_s,
+               "ok": same}
+        emit(rec, log)
+        check(same, f"the one-rank {n['backend']} step differs: {rec}")
+        if dev.type == "cuda":
+            with torch.no_grad():
+                mesh_service_run(dev, log, smi, hw)
+        emit({"phase": 14, "gloo_ranks_wall_s": gloo_s,
+              "wall_s": time.perf_counter() - t_phase}, log)
+        return dp_counts
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--rank"]:                 # a rank of phase 14
+        return rank_main(*argv[1:3])
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13")
+    ap.add_argument("--phases",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14")
     ap.add_argument("--out", default=None,
                     help="also append the JSON lines to this file")
     args = ap.parse_args(argv)
@@ -3773,7 +4437,7 @@ def main(argv=None):
                 f"a bf16 pass of {src_name} spills: {ptxas}")
         results = {}
         main_counts = train_counts = ot_counts = cli_counts = None
-        serve_counts = sfm_counts = None
+        serve_counts = sfm_counts = dp_counts = None
         with torch.no_grad():  # the inference phases carry no graph
             if 2 in phases:
                 kernel_checks(dev, log, results)
@@ -3811,6 +4475,8 @@ def main(argv=None):
                 serve_counts = serve_path(dev, log)
         if 13 in phases:
             sfm_counts = sfm_path(dev, log)
+        if 14 in phases:
+            dp_counts = parallel_path(dev, log, smi)
         if results and None not in (main_counts, train_counts, ot_counts):
             pal = "loftr_tpu/ops/pallas/"
             src = {"coarse_layer": ("coarse_layer.cu", "coarse_layer.py:117"),
@@ -3862,6 +4528,13 @@ def main(argv=None):
                 for name in ("coarse_layer", "dual_softmax", "fine_stage"):
                     extra.setdefault(name, {})["sfm_launches"] = \
                         sfm_counts[name]
+            if dp_counts is not None:
+                # phase 14's data-parallel step: rank 0's launches
+                for name, n in (("dual_softmax", dp_counts["dual_softmax"]),
+                                ("focal_loss",
+                                 dp_counts["focal_loss_forward"]
+                                 + dp_counts["focal_loss_backward"])):
+                    extra.setdefault(name, {})["dp_rank0_launches"] = n
             optional = ("ms_forward", "ms_backward", "peak_mem_MiB",
                         "plain_peak_mem_MiB", "ms_prefilter",
                         "ms_1024_windows", "device_ms_1024_windows",

@@ -3,8 +3,11 @@
 A copy of ``loftr_tpu.config`` (the port never imports the JAX package):
 the same frozen dataclasses, field names, defaults and named presets, so a
 preset here equals its JAX counterpart field by field.  Fields that only
-steer TPU code paths (``winograd``, ``seq_axis``, ``win_pack``,
+steer TPU code paths (``winograd``, ``win_pack``,
 ``loss.force_pallas_cpu``) are kept as inert fields for that comparison.
+``coarse.seq_axis`` names the axis of the ambient mesh
+(``parallel/mesh.py``) over which the plain coarse stack shards its tokens
+(``parallel/seq_attention.py``).
 
 ``use_pallas`` keeps its name: in the port it selects the hand-written
 CUDA kernel module (``ops/kernels/``) instead of the plain PyTorch path

@@ -16,9 +16,10 @@ the relative pose of each pair by one of the solvers:
     ``jax`` / ``jax5pt``).
 
 Results aggregate to pose AUC@{5,10,20} and precision at the epipolar
-threshold.  The evaluator runs in one process: several processes need the
-merge of per-pair results across processes, which waits for the parallel
-modules (``ROADMAP.md``, the parallel item of queue 1).
+threshold.  In a process group of several ranks each rank evaluates its
+pairs and the per-pair lists are merged across the ranks before the
+aggregation (:func:`_merge_across_processes`), so every rank returns the
+metrics of the whole set.
 """
 from __future__ import annotations
 
@@ -37,19 +38,28 @@ from loftr_tpu_torch.eval.metrics import (aggregate_metrics,
                                           relative_pose_error,
                                           symmetric_epipolar_distance)
 from loftr_tpu_torch.models.matcher import LoFTR
+from loftr_tpu_torch.parallel.comm import (group_size,
+                                           process_allgather_objects)
 
 HOST_SOLVERS = ("opencv", "native", "5pt")
 DEVICE_SOLVERS = ("batched", "batched5pt")
 
 
-def _check_single_process(world_size: int) -> None:
-    dist = torch.distributed
-    if world_size > 1 or (dist.is_available() and dist.is_initialized()
-                          and dist.get_world_size() > 1):
-        raise NotImplementedError(
-            "evaluation across several processes needs the merge of "
-            "per-pair results across processes, which waits for the "
-            "parallel modules (ROADMAP.md, the parallel item of queue 1)")
+def _merge_across_processes(metrics: Dict[str, list]) -> Dict[str, list]:
+    """Gather the raw per-pair metric lists of every rank (the JAX
+    package's ``_merge_across_hosts``).  Under exact pair sharding each
+    rank holds disjoint pairs; the lists hold strings and ragged arrays, so
+    they travel as pickled objects (``parallel.comm.
+    process_allgather_objects``) and are concatenated in rank order.  The
+    lists themselves in one process."""
+    parts = process_allgather_objects(metrics)
+    if len(parts) == 1:
+        return metrics
+    merged = {k: [] for k in metrics}
+    for part in parts:
+        for k, v in part.items():
+            merged[k].extend(list(v))
+    return merged
 
 
 class Evaluator:
@@ -113,7 +123,6 @@ class Evaluator:
         renders them).  figure_sink: optional callable(list of matplotlib
         figures) for the first ``n_figure_pairs`` pairs, epi-error colored
         (plotting.py:112-133); closing them passes to the sink."""
-        _check_single_process(1)
         was_training = getattr(self.model, "training", None)
         if was_training is not None:
             self.model.eval()
@@ -205,6 +214,7 @@ class Evaluator:
         if dumps is not None:
             np.savez_compressed(
                 dump_path, records=np.asarray(dumps, dtype=object))
+        metrics = _merge_across_processes(metrics)
         return aggregate_metrics(metrics, self.config.trainer.epi_err_thr)
 
     def evaluate_dataset(self, dataset, batch_size: int = 1,
@@ -214,10 +224,13 @@ class Evaluator:
                          figure_sink=None, n_figure_pairs: int = 8,
                          figure_conf_thr: float = 5e-4
                          ) -> Dict[str, float]:
-        """Evaluate the pairs of ``dataset`` this rank owns: exact
-        round-robin sharding of pair indices (no duplicates).  Only one
-        process (world_size 1) is supported yet."""
-        _check_single_process(world_size)
+        """Evaluate the pairs of ``dataset`` this rank owns (exact
+        round-robin sharding of pair indices, no duplicates) and return the
+        metrics of the whole set, merged across the process group, which
+        must hold ``world_size`` ranks."""
+        if world_size != group_size():
+            raise ValueError(f"world_size {world_size} but the process "
+                             f"group holds {group_size()} ranks")
         order = list(range(rank, len(dataset), world_size))
         loader = DataLoader(dataset, batch_size=batch_size, sampler=order,
                             num_workers=num_workers, drop_last=False)

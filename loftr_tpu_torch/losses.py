@@ -7,6 +7,13 @@ mask is empty.  The dense focal loss of the dual-softmax matcher has a
 second route, :func:`_fused_coarse_loss`, through the focal-loss kernel
 module: it takes the coarse features instead of the [B, L, S] confidence
 matrix.
+
+Inside ``parallel.comm.data_parallel`` every denominator is the global
+batch's (``comm.batch_total``), as under JAX's data-sharded mesh, while the
+numerators stay this rank's: the loss a rank returns is its part of the
+global loss, the parts sum to it, and the sum of the ranks' gradients is
+its gradient (``train/trainer.py``).  Outside it the terms are the plain
+means, bit for bit.
 """
 from __future__ import annotations
 
@@ -16,13 +23,15 @@ import torch
 
 from loftr_tpu_torch.config import LossConfig, MatchCoarseConfig
 from loftr_tpu_torch.ops.kernels.focal_loss import fused_focal_sums
+from loftr_tpu_torch.parallel.comm import batch_total, data_group
 from loftr_tpu_torch.structs import MatchInput, MatchResult, Supervision
 
 
 def _masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """sum(values * mask) / count(mask), 0 if the mask is empty."""
+    """sum(values * mask) / count(mask), 0 if the mask is empty; the count
+    is the global batch's under data parallelism."""
     mask = mask.to(values.dtype)
-    count = mask.sum()
+    count = batch_total(mask.sum())
     total = (values * mask).sum()
     return torch.where(count > 0, total / count.clamp_min(1),
                        torch.zeros_like(total))
@@ -80,7 +89,7 @@ def coarse_loss(conf: torch.Tensor, conf_gt: torch.Tensor, cfg: LossConfig,
                 neg1 = neg1 & (weight.sum(dim=1) != 0)
             l0 = -alpha * (1 - bin_col) ** gamma * torch.log(bin_col)
             l1 = -alpha * (1 - bin_row) ** gamma * torch.log(bin_row)
-            n_neg = neg0.sum() + neg1.sum()
+            n_neg = batch_total(neg0.sum() + neg1.sum())
             total = (l0 * neg0).sum() + (l1 * neg1).sum()
             loss_neg = torch.where(n_neg > 0, total / n_neg.clamp_min(1),
                                    torch.zeros_like(total))
@@ -115,9 +124,9 @@ def fine_loss(expec_f: torch.Tensor, expec_f_gt: torch.Tensor,
         raise NotImplementedError(cfg.fine_type)
 
     inverse_std = 1.0 / expec_f[..., 2].clamp_min(1e-10)
-    # normalised by the mean inverse std over the valid slots; detached, so
-    # the loss cannot be lowered by inflating std
-    mean_inv = _masked_mean(inverse_std, slot_mask)
+    # normalised by the mean inverse std over the valid slots (of the
+    # global batch); detached, so the loss cannot be lowered by inflating std
+    mean_inv = batch_total(_masked_mean(inverse_std.detach(), slot_mask))
     weight = (inverse_std / mean_inv.clamp_min(1e-10)).detach()
     return _masked_mean(offset_l2 * weight, correct)
 
@@ -136,8 +145,11 @@ def _fused_coarse_loss(result: MatchResult, spv: Supervision,
     p, n = fused_focal_sums(f0.contiguous(), f1.contiguous(), spv.gt_j,
                             spv.gt_valid, m0, m1, mc.dsmax_temperature,
                             cfg.focal_alpha, cfg.focal_gamma)
-    n_pos = spv.gt_valid.sum().float()
-    n_neg = float(B * L * S) - n_pos
+    n_pos = batch_total(spv.gt_valid.sum().float())
+    n_cells = float(B * L * S)
+    if data_group() is not None:       # the global batch's cells
+        n_cells = batch_total(torch.tensor(n_cells, device=f0.device))
+    n_neg = n_cells - n_pos
     zero = torch.zeros_like(n_pos)
     mean_pos = torch.where(n_pos > 0, p.sum() / n_pos.clamp_min(1), zero)
     mean_neg = torch.where(n_neg > 0, n.sum() / n_neg.clamp_min(1), zero)

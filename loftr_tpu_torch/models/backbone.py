@@ -36,6 +36,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from loftr_tpu_torch.ops.interpolate import upsample2x_align_corners
+from loftr_tpu_torch.parallel import comm
 from loftr_tpu_torch.utils.derived import derived
 
 
@@ -95,11 +96,24 @@ def _bn_train(bn: nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
 
     The running variance takes the *biased* batch variance, as flax's
     ``nn.BatchNorm`` does in the JAX package this port is held against;
-    ``torch.nn.functional.batch_norm`` would write the unbiased one."""
+    ``torch.nn.functional.batch_norm`` would write the unbiased one (and so
+    would ``nn.SyncBatchNorm``).
+
+    Inside ``parallel.comm.data_parallel`` the statistics are those of the
+    global batch, as under JAX's data-sharded mesh: each rank's E[x] and
+    E[x^2], weighted by its share of the global count (1 / ranks: every
+    rank holds as many rows), are summed by ``comm.batch_sum`` (its
+    backward sums the gradients).  A group of one rank weighs by exactly 1
+    and gives the statistics of the plain step bit for bit."""
     x32 = x.float()
     mean = x32.mean(dim=(0, 2, 3))
+    sq = (x32 * x32).mean(dim=(0, 2, 3))
+    dg = comm.data_group()
+    if dg is not None:
+        stats = comm.batch_sum(torch.stack([mean, sq]) / dg.size)
+        mean, sq = stats[0], stats[1]
     # the variance as flax forms it: E[x^2] - E[x]^2, clamped at 0
-    var = ((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+    var = (sq - mean * mean).clamp_min(0.0)
     with torch.no_grad():
         bn.running_mean.lerp_(mean.detach(), bn.momentum)
         bn.running_var.lerp_(var.detach(), bn.momentum)

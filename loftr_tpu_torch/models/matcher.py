@@ -6,7 +6,8 @@ loftr.py:29-75):
       norm (both images in one call when their shapes agree)
   [2] position encoding + flatten to [B, L, C]
   [3] coarse transformer (self/cross x4)          -> coarse-layer kernel
-      (``coarse.attention="full"``: softmax attention on the plain stack)
+      (``coarse.attention="full"``: softmax attention on the plain stack;
+      ``coarse.seq_axis``: the plain stack token-sharded over a mesh axis)
   [4] dual-softmax + mutual-nearest candidates    -> dual-softmax kernel
       (``match_type="sinkhorn"``: Sinkhorn OT with the learned dustbin score
       ``coarse_matching.bin_score``                -> Sinkhorn kernel)
@@ -147,9 +148,27 @@ class LoFTR(nn.Module):
         """[3] coarse transformer.  The kernel is inference only and
         computes linear attention: with ``coarse.attention == "full"`` the
         configured function is softmax attention, which the plain stack
-        computes (the JAX matcher's gate, ``loftr_tpu/models/matcher.py``)."""
+        computes (the JAX matcher's gate, ``loftr_tpu/models/matcher.py``).
+        With ``coarse.seq_axis`` the plain stack runs with its tokens
+        sharded over that axis of the ambient mesh
+        (``parallel/seq_attention.py``), in training and inference."""
         cfg = self.config
-        if (cfg.coarse.use_pallas and not train
+        if cfg.coarse.seq_axis is not None:
+            # token-sharded plain stack over the ambient mesh's axis; it
+            # takes precedence over the kernel, as in the JAX matcher
+            from loftr_tpu_torch.parallel.mesh import current_mesh
+            from loftr_tpu_torch.parallel.seq_attention import \
+                sharded_coarse_stack
+            mesh = current_mesh()
+            if mesh is None or cfg.coarse.seq_axis not in mesh.shape:
+                raise ValueError(
+                    f"coarse.seq_axis={cfg.coarse.seq_axis!r} needs an "
+                    "ambient mesh with that axis (with mesh: ...)")
+            c0, c1 = sharded_coarse_stack(
+                self.loftr_coarse, f.feat_c0, f.feat_c1, f.mask_c0,
+                f.mask_c1, cfg.batch_packing,
+                mesh.group(cfg.coarse.seq_axis))
+        elif (cfg.coarse.use_pallas and not train
                 and cfg.coarse.attention == "linear"):
             c0, c1 = fused_coarse_forward(self.loftr_coarse, f.feat_c0,
                                           f.feat_c1, f.mask_c0, f.mask_c1,

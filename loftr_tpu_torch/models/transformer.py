@@ -72,28 +72,35 @@ class LoFTREncoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
+    def _attention(self):
+        if self.attention == "full":
+            return full_attention
+        if self.fused_heads and (self.training or self.fused_heads_eval):
+            return linear_attention_fused_heads
+        return linear_attention
+
     def forward(self, x, source, x_mask: Optional[torch.Tensor] = None,
-                source_mask: Optional[torch.Tensor] = None):
-        """x: [B, L, C]; source: [B, S, C]; masks [B, L] / [B, S]."""
+                source_mask: Optional[torch.Tensor] = None, attn=None):
+        """x: [B, L, C]; source: [B, S, C]; masks [B, L] / [B, S].
+        ``attn``: an attention function with ``linear_attention``'s
+        signature in place of the layer's own (the sequence-parallel ones
+        of ``parallel/seq_attention.py``)."""
         b, l, c = x.shape
         h = self.nhead
         d = c // h
         q = apply_linear(self.q_proj, x)
         k = apply_linear(self.k_proj, source)
         v = apply_linear(self.v_proj, source)
-        if (self.fused_window_attn and self.attention == "linear"
+        if attn is None and (self.fused_window_attn
+                and self.attention == "linear"
                 and x_mask is None and source_mask is None
                 and x.shape == source.shape):
             from loftr_tpu_torch.ops.kernels.window_attention import \
                 window_linear_attention
             message = window_linear_attention(q, k, v, nheads=h)
         else:
-            if self.attention == "full":
-                attn = full_attention
-            elif self.fused_heads and (self.training or self.fused_heads_eval):
-                attn = linear_attention_fused_heads
-            else:
-                attn = linear_attention
+            if attn is None:
+                attn = self._attention()
             message = attn(q.reshape(b, l, h, d), k.reshape(b, -1, h, d),
                            v.reshape(b, -1, h, d), q_mask=x_mask,
                            kv_mask=source_mask)
@@ -153,8 +160,10 @@ class LocalFeatureTransformer(nn.Module):
              for _ in self.layer_names])
 
     def forward(self, feat0, feat1, mask0=None, mask1=None,
-                batch_packing: str = "concat"):
-        """feat0: [B, L, C]; feat1: [B, S, C]."""
+                batch_packing: str = "concat", attn=None):
+        """feat0: [B, L, C]; feat1: [B, S, C].  ``attn``: every layer's
+        attention function in place of its own (``LoFTREncoderLayer``)."""
         return run_layers(self.layers, self.layer_names,
-                          lambda layer, x, s, xm, sm: layer(x, s, xm, sm),
+                          lambda layer, x, s, xm, sm: layer(x, s, xm, sm,
+                                                            attn=attn),
                           feat0, feat1, mask0, mask1, batch_packing)

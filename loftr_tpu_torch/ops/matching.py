@@ -15,6 +15,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from loftr_tpu_torch.ops.sinkhorn import log_optimal_transport
+from loftr_tpu_torch.parallel.comm import batch_total, data_group
 from loftr_tpu_torch.structs import CoarseMatches
 
 INF = 1e9
@@ -262,14 +263,26 @@ def select_train_matches(cand: CandidateMatches, gt_j: torch.Tensor,
     or from ``noise``: the pre-drawn uniform arrays of
     :func:`draw_select_noise`, which lets a test feed the numbers another
     framework drew.
+
+    Inside ``parallel.comm.data_parallel`` the batch is the global one, as
+    under JAX's data-sharded mesh: the noise is drawn (or given) at the
+    global batch's shape and each rank takes its rows, and
+    'global_replacement' shares the slots out over the global batch's
+    candidates.  N ranks then select what one process selects on the
+    concatenated batch with the same generator.
     """
     B, L = cand.valid.shape
     dev = cand.valid.device
     k_pred_max = k_train - pad_num_gt_min
     if k_pred_max <= 0:
         raise ValueError("pad_num_gt_min must be < k_train")
+    dg = data_group()
+    b_all = B if dg is None else dg.global_rows
     if noise is None:
-        noise = draw_select_noise(B, L, k_train, sampling, generator, dev)
+        noise = draw_select_noise(b_all, L, k_train, sampling, generator,
+                                  dev)
+    if dg is not None:
+        noise = {k: dg.local(v) for k, v in noise.items()}
 
     slot = torch.arange(k_train, device=dev)[None, :]
     if budget is None:
@@ -283,8 +296,8 @@ def select_train_matches(cand: CandidateMatches, gt_j: torch.Tensor,
 
     if sampling == "global_replacement":
         n_cand = cand.valid.sum(dim=1)                         # [B]
-        total = n_cand.sum().clamp_min(1)
-        expect = (B * k_pred_max) * n_cand / total
+        total = batch_total(n_cand.sum()).clamp_min(1)
+        expect = (b_all * k_pred_max) * n_cand / total
         quota = torch.floor(expect + noise["quota"]).to(torch.int32)
         eff_pred = torch.minimum(quota[:, None], eff_pred)
         cpri = torch.where(cand.valid, noise["shuffle"], neg1)

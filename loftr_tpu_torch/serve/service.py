@@ -33,10 +33,17 @@
 - **Errors.** A forward that raises fails every future of its group, and
   the service goes on; it never answers from another path.
 
+- **Several devices.** ``mesh={"data": [device, ...]}`` (this process's
+  devices, ``parallel.mesh.local_device_mesh``) holds one model replica a
+  device: each batch's rows are split evenly over the devices (every rung
+  is rounded up to a multiple of their count), each shard is copied,
+  matched and fetched on its device's own stream, and the completer joins
+  the shards' results in row order.  The two-image packing is
+  ``interleave``, as in JAX's meshed service.
+
 Latency/throughput knobs: ``flush_ms`` (how long the oldest request waits
 for batch-mates), ``batch_sizes``, ``buckets``, ``queue_depth``,
-``stack_workers``, ``max_hold_ms``.  Multi-card serving (``mesh=``) waits
-for the parallel modules.
+``stack_workers``, ``max_hold_ms``, ``mesh``.
 """
 from __future__ import annotations
 
@@ -224,7 +231,13 @@ class MatchingService:
         max_hold_ms: how long a partial rung may be held past ``flush_ms``
         while the pipeline is saturated (the saturation gate trades flush
         latency for full rungs under load); bounds cross-bucket
-        starvation."""
+        starvation.
+
+        mesh: ``{"data": [device, ...]}``: one replica a device, each
+        batch's rows split over them (rungs rounded up to multiples of
+        their count); ``device`` is then ignored."""
+        import copy
+
         from loftr_tpu_torch.api import resolve_device
         from loftr_tpu_torch.config import get_config
         from loftr_tpu_torch.models.matcher import LoFTR
@@ -232,18 +245,26 @@ class MatchingService:
             infer_backbone_overrides
 
         if mesh is not None:
-            raise NotImplementedError(
-                "MatchingService(mesh=...): serving across cards waits for "
-                "the parallel modules (ROADMAP.md, the parallel item of "
-                "queue 1)")
+            if "data" not in mesh or not len(mesh["data"]):
+                raise ValueError("serving mesh needs a 'data' axis of "
+                                 "devices")
+            devices = [resolve_device(d) for d in mesh["data"]]
+            if len({d.type for d in devices}) != 1:
+                raise ValueError(f"mesh devices of several types: {devices}")
+        else:
+            devices = [resolve_device(device)]
         for bh, bw in buckets:
             if bh % 8 or bw % 8:
                 raise ValueError(f"bucket {(bh, bw)} not /8-divisible")
-        self.device = resolve_device(device)
+        self.devices = devices
+        self.device = devices[0]
         ov = {"loftr": {"dtype": dtype,
                         "match_coarse": {"use_pallas": use_pallas},
                         "fine": {"use_pallas": use_pallas},
                         **infer_backbone_overrides(weights)}}
+        if mesh is not None:
+            # shard-local two-image packing, as JAX's meshed service
+            ov["loftr"]["batch_packing"] = "interleave"
         if overrides:
             # caller overrides win over the serving defaults
             ov_loftr = dict(ov["loftr"])
@@ -256,14 +277,20 @@ class MatchingService:
         self.config = get_config(preset, ov)
         model = LoFTR(self.config.loftr)
         model.load_state_dict(weights)
-        self._model = model.eval().to(self.device)
+        model.eval()
+        # one replica a device (the last takes the loaded module itself)
+        self._models = [copy.deepcopy(model).to(d) for d in devices[:-1]]
+        self._models.append(model.to(devices[-1]))
         self._wire = np.uint8 if wire_dtype == "uint8" else np.float32
         self._cuda = self.device.type == "cuda"
-        self._stream = (torch.cuda.Stream(self.device) if self._cuda
-                        else None)
-        self._255 = torch.tensor(255.0, device=self.device)
+        self._streams = [torch.cuda.Stream(d) if self._cuda else None
+                         for d in devices]
+        self._255 = [torch.tensor(255.0, device=d) for d in devices]
         self.buckets = tuple((int(h), int(w)) for h, w in buckets)
-        self.batch_sizes = tuple(sorted({int(b) for b in batch_sizes}))
+        # every rung splits evenly over the devices: round up, dedup
+        ns = len(devices)
+        self.batch_sizes = tuple(sorted({-(-int(b) // ns) * ns
+                                         for b in batch_sizes}))
         self.max_batch = self.batch_sizes[-1]
         self.flush_s = flush_ms / 1000.0
         self.max_hold_s = max(max_hold_ms, flush_ms) / 1000.0
@@ -336,8 +363,10 @@ class MatchingService:
         """One forward of every (bucket, rung), masked and unmasked, each
         fetched: cuDNN's algorithm choice and the kernel library's build
         happen here instead of in the first requests."""
+        ns = len(self.devices)
         for bh, bw in self.buckets:
             for n in (batch_sizes or self.batch_sizes):
+                n = -(-int(n) // ns) * ns
                 for full in (True, False):
                     mask = np.ones((bh // 8, bw // 8), bool)
                     mask[:, -1] = full
@@ -439,19 +468,27 @@ class MatchingService:
     def _place(self, img0, img1, mask0, mask1, scale0, scale1):
         """Stacked host tensors -> a MatchInput on the device, copied
         without blocking on the service's stream.  Masks that are all true
-        are left out (the same function)."""
+        are left out (the same function).  With several devices, a list of
+        MatchInputs: each device's rows, on its own stream."""
         from loftr_tpu_torch.structs import MatchInput
 
         t0 = time.perf_counter()
         host = dict(image0=img0, image1=img1, scale0=scale0, scale1=scale1)
         if not (bool(mask0.all()) and bool(mask1.all())):
             host.update(mask0=mask0, mask1=mask1)
-        if self._cuda:
-            with torch.cuda.stream(self._stream):
-                host = {k: v.to(self.device, non_blocking=True)
-                        for k, v in host.items()}
+        n = len(self.devices)
+        rows = img0.shape[0] // n
+        shards = []
+        for i, (dev, stream) in enumerate(zip(self.devices, self._streams)):
+            part = {k: v[i * rows:(i + 1) * rows] if n > 1 else v
+                    for k, v in host.items()}
+            if self._cuda:
+                with torch.cuda.stream(stream):
+                    part = {k: v.to(dev, non_blocking=True)
+                            for k, v in part.items()}
+            shards.append(MatchInput(**part))
         self.stats.record_phase("place", (time.perf_counter() - t0) * 1e3)
-        return MatchInput(**host)
+        return shards if n > 1 else shards[0]
 
     def _prepare(self, b: Bucket, group: List[_Request], rung: int):
         """Host batch assembly and placement (in the stack pool when
@@ -475,31 +512,39 @@ class MatchingService:
         self.stats.record_phase("stack", (time.perf_counter() - t0) * 1e3)
         return self._place(*tensors)
 
-    def _forward(self, inp):
-        """The matcher on one placed batch.  uint8 images are divided by
-        255 in float32 on the device, by a tensor: PyTorch multiplies by
-        the reciprocal when the divisor is a Python number, which is not
-        the host's division bit for bit."""
+    def _forward(self, inp, i: int = 0):
+        """Device ``i``'s matcher on one placed batch.  uint8 images are
+        divided by 255 in float32 on the device, by a tensor: PyTorch
+        multiplies by the reciprocal when the divisor is a Python number,
+        which is not the host's division bit for bit."""
         if inp.image0.dtype == torch.uint8:
-            inp.image0 = inp.image0.float() / self._255
-            inp.image1 = inp.image1.float() / self._255
-        return self._model(inp)
+            inp.image0 = inp.image0.float() / self._255[i]
+            inp.image1 = inp.image1.float() / self._255[i]
+        return self._models[i](inp)
 
     def _launch(self, inp):
         """Issue the forward, then one non-blocking copy of the packed
         result ([B, K, 6] float32: valid, mconf, mkpts0_f, mkpts1_f) into
         a pinned host tensor, and record an event after it.  Returns
-        (host tensor, event or None on the CPU)."""
+        (host tensor, event or None on the CPU); with several devices
+        (``inp`` a list), (a host tensor a device, an event a device)."""
+        if isinstance(inp, list):
+            out = [self._launch_on(i, x) for i, x in enumerate(inp)]
+            return [h for h, _ in out], [e for _, e in out]
+        return self._launch_on(0, inp)
+
+    def _launch_on(self, i: int, inp):
         with torch.inference_mode():
             if not self._cuda:
-                return self._pack(self._forward(inp)), None
-            with torch.cuda.stream(self._stream):
-                packed = self._pack(self._forward(inp))
+                return self._pack(self._forward(inp, i)), None
+            stream = self._streams[i]
+            with torch.cuda.stream(stream):
+                packed = self._pack(self._forward(inp, i))
                 host = torch.empty(packed.shape, dtype=packed.dtype,
                                    pin_memory=True)
                 host.copy_(packed, non_blocking=True)
                 event = torch.cuda.Event()
-                event.record(self._stream)
+                event.record(stream)
         return host, event
 
     @staticmethod
@@ -510,8 +555,12 @@ class MatchingService:
                           out.mkpts0_f.to(f32), out.mkpts1_f.to(f32)], -1)
 
     @staticmethod
-    def _finish(host: torch.Tensor, event) -> np.ndarray:
-        """Wait for the result copy; the packed result as numpy."""
+    def _finish(host, event) -> np.ndarray:
+        """Wait for the result copy; the packed result as numpy (the
+        devices' shards joined in row order)."""
+        if isinstance(host, list):
+            return np.concatenate([MatchingService._finish(h, e)
+                                   for h, e in zip(host, event)])
         if event is not None:
             event.synchronize()
         return host.numpy()

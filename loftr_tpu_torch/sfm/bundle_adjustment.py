@@ -1,6 +1,5 @@
 """Bundle adjustment with an explicit Schur complement
-(``loftr_tpu.sfm.bundle_adjustment``, less its point-sharded half, which
-waits for the parallel modules).
+(``loftr_tpu.sfm.bundle_adjustment``).
 
 Static shapes: observations are grouped BY POINT into a [P, O] table (O =
 max observations per point; zero-weight padding), so the camera-camera
@@ -24,6 +23,12 @@ On the card, as JAX pins its products to 'highest':
     holds and reads the test on the host every ``PCG_CHECK_EVERY`` steps:
     JAX's ``while_loop`` result with a tenth of the host reads.
 
+Distribution (:func:`make_sharded_ba_iteration`, :func:`bundle_adjust_sharded`):
+the points and their observations are sharded over the ranks of a mesh
+axis, the cameras replicated; every partial sum by camera is formed on its
+rank and all-reduced, the camera solve runs replicated, and the landmark
+back-substitution stays on its rank.
+
 Conventions: pose = world->camera (R, t); observation uv is in NORMALIZED
 camera coordinates (pixels pre-multiplied by K^-1); pose increments are
 left-multiplied se3 perturbations.
@@ -38,6 +43,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from loftr_tpu_torch.parallel import comm
 from loftr_tpu_torch.sfm.lie import exp_se3, hat
 from loftr_tpu_torch.utils.precision import true_float32
 
@@ -281,21 +287,28 @@ def _schur_reduce(prob: BAProblem, Hcc, b_c, Hpp_inv, b_p, A, lm_lambda,
 # rows have A == 0 and contribute nothing).
 # ---------------------------------------------------------------------------
 
-def _schur_matvec(plan: BAPlan, obs_cam, Hcc_damped, Hpp_inv, A, v):
-    """Apply the reduced camera matrix S to v [C, 6] without forming S."""
+def _identity(x):
+    return x
+
+
+def _schur_matvec(plan: BAPlan, obs_cam, Hcc_damped, Hpp_inv, A, v,
+                  reduce=_identity):
+    """Apply the reduced camera matrix S to v [C, 6] without forming S.
+    ``reduce`` sums the points' part over the ranks of a sharded problem."""
     vc = v[obs_cam]                                        # [P, O, 6]
     u = torch.einsum("poab,poa->pb", A, vc)                # [P, 3] A^T v
     w = torch.einsum("pab,pb->pa", Hpp_inv, u)             # [P, 3]
     Aw = torch.einsum("poab,pb->poa", A, w)                # [P, O, 6]
-    out = -plan.by_cam(Aw.reshape(-1, 6))
+    out = reduce(-plan.by_cam(Aw.reshape(-1, 6)))
     return out + torch.einsum("cab,cb->ca", Hcc_damped, v)
 
 
-def _schur_diag_blocks(plan: BAPlan, Hcc_damped, Hpp_inv, A):
+def _schur_diag_blocks(plan: BAPlan, Hcc_damped, Hpp_inv, A,
+                       reduce=_identity):
     """Exact 6x6 diagonal blocks of S."""
     G = torch.einsum("poab,pbc->poac", A, Hpp_inv)         # [P, O, 6, 3]
     d = torch.einsum("poac,pobc->poab", G, A)              # [P, O, 6, 6]
-    return Hcc_damped - plan.by_cam(d.reshape(-1, 6, 6))
+    return Hcc_damped - reduce(plan.by_cam(d.reshape(-1, 6, 6)))
 
 
 def _vdot(a, b):
@@ -344,26 +357,29 @@ def _pcg(matvec, Minv_blocks, rhs, active, iters: int, rtol: float):
 
 def _solve_cameras_pcg(prob: BAProblem, Hcc, b_c, Hpp_inv, b_p, A,
                        lm_lambda, cg_iters: int = 100, cg_rtol: float = 1e-6,
-                       plan: Optional[BAPlan] = None):
+                       plan: Optional[BAPlan] = None, reduce=_identity):
     """Gauge-fixed reduced-system solve via matrix-free PCG: the damping and
     gauge of _schur_reduce + _solve_cameras with O(P*O) work a CG
-    iteration and no [C,C] or [P,O,O] tensor."""
+    iteration and no [C,C] or [P,O,O] tensor.  On a sharded problem
+    ``reduce`` sums each part over the points (the right-hand side's
+    correction, the diagonal blocks, each matvec) over the ranks; ``Hcc``
+    and ``b_c`` come in summed."""
     plan = plan or BAPlan(prob.obs_cam, prob.n_cams, pairs=False)
     eye6 = torch.eye(6, dtype=Hcc.dtype, device=Hcc.device)
     Hcc_damped = Hcc + lm_lambda * eye6 * _damping_scale(Hcc, 6)
 
     G = torch.einsum("poab,pbc->poac", A, Hpp_inv)
     gb = torch.einsum("poac,pc->poa", G, b_p)
-    rhs = b_c - plan.by_cam(gb.reshape(-1, 6))
+    rhs = b_c - reduce(plan.by_cam(gb.reshape(-1, 6)))
 
-    D = _schur_diag_blocks(plan, Hcc_damped, Hpp_inv, A)
+    D = _schur_diag_blocks(plan, Hcc_damped, Hpp_inv, A, reduce)
     # fixed cameras: identity block so the inverse is well-posed
     fixed = prob.fix_mask
     D = torch.where(fixed[:, None, None], eye6[None], D + 1e-8 * eye6)
     Minv = torch.linalg.inv(D)
 
     matvec = partial(_schur_matvec, plan, prob.obs_cam, Hcc_damped, Hpp_inv,
-                     A)
+                     A, reduce=reduce)
     return _pcg(matvec, Minv, rhs, ~fixed, cg_iters, cg_rtol)
 
 
@@ -452,6 +468,119 @@ def bundle_adjust(prob: BAProblem, max_iters: int = 20,
         if verbose:
             print(f"BA iter {it}: cost {cost:.6e} -> {new_cost:.6e} "
                   f"(lambda={lam:.1e})")
+        if new_cost < cost:
+            prob = cand
+            improved = cost - new_cost
+            cost = new_cost
+            lam = max(lam * 0.3, 1e-9)
+            if improved < tol * max(cost, 1.0):
+                break
+        else:
+            lam = min(lam * 10.0, 1e6)
+            if lam >= 1e6:
+                break
+    return prob, cost
+
+
+# ---------------------------------------------------------------------------
+# Distributed BA: points (and their observations) sharded over the ranks of a
+# mesh axis; the reduced camera system is formed with all-reduces and solved
+# replicated; landmark back-substitution stays on its rank.
+# ---------------------------------------------------------------------------
+
+def shard_problem(prob: BAProblem, mesh, axis: str = "data") -> BAProblem:
+    """This rank's contiguous slice of the points and their observations;
+    the cameras stay whole (replicated).  P must split evenly."""
+    from loftr_tpu_torch.parallel.mesh import shard_batch
+    rows = shard_batch(mesh, {"points": prob.points, "obs_uv": prob.obs_uv,
+                              "obs_cam": prob.obs_cam, "obs_w": prob.obs_w},
+                       axis)
+    return prob.replace(**rows)
+
+
+def make_sharded_ba_iteration(mesh, axis: str = "data",
+                              solver: str = "dense", cg_iters: int = 100):
+    """A BA iteration over a point-sharded problem (JAX's signature).
+
+    The returned ``step(prob, lm_lambda, plan=None)`` takes this rank's
+    shard (:func:`shard_problem`: its points and observations, every
+    camera) and its :class:`BAPlan` (built when not given), and returns
+    (this rank's candidate shard, old cost, new cost), the costs global.
+    Robust kernels do not apply, as in JAX's sharded iteration.
+
+    solver 'dense': each rank fills its partial [C, C, 6, 6] S and rhs,
+    one all-reduce of each, a replicated dense solve.  solver 'pcg':
+    matrix-free, one all-reduce a CG matvec (and of the diagonal blocks
+    and the right-hand side's correction), nothing quadratic in C.
+    ``Hcc`` and ``b_c`` are all-reduced before the damping, which must see
+    the global ``Hcc``.
+
+    Every rank holds the same bits of the camera update: the all-reduce
+    hands every rank the same sums, and the solve and the PCG's host exit
+    tests then run on equal inputs.  Against the single-process
+    :func:`ba_iteration` the sums by camera are regrouped (each rank's
+    ``SegmentSum`` over its points, deterministic, then the ranks' partial
+    sums added in the collective's order), which moves them by float32
+    rounding, about 1e-7 of their size; the camera solve carries that
+    times S's condition number (the monocular scale gauge leaves S at
+    ~1e4), and the landmark back-substitution amplifies it further through
+    its 3x3 inverses.  The costs agree to ~1e-5 relative."""
+    if solver not in ("dense", "pcg"):
+        raise ValueError(f"unknown BA solver {solver!r}")
+    group = mesh.group(axis)
+    reduce = partial(comm.reduce_sum, group=group)
+
+    def step(prob: BAProblem, lm_lambda, plan: Optional[BAPlan] = None):
+        if plan is None:
+            plan = BAPlan(prob.obs_cam, prob.n_cams,
+                          pairs=solver == "dense")
+        with true_float32():
+            r, Hcc_l, b_c_l, Hpp_inv, b_p, A = _build_normal_terms(
+                prob, lm_lambda, plan=plan)
+            # the damping must see the global Hcc: sum the parts first
+            Hcc, b_c = reduce(torch.cat([Hcc_l.reshape(-1, 36), b_c_l],
+                                        1)).split([36, 6], 1)
+            Hcc = Hcc.reshape(-1, 6, 6)
+            if solver == "pcg":
+                delta_c = _solve_cameras_pcg(prob, Hcc, b_c, Hpp_inv, b_p,
+                                             A, lm_lambda, cg_iters=cg_iters,
+                                             plan=plan, reduce=reduce)
+            else:
+                S_l, rhs_l = _schur_reduce(prob, torch.zeros_like(Hcc),
+                                           torch.zeros_like(b_c), Hpp_inv,
+                                           b_p, A, 0.0, plan)
+                S, rhs = reduce(S_l), reduce(rhs_l) + b_c
+                eye6 = torch.eye(6, dtype=S.dtype, device=S.device)
+                _block_diag(S).add_(Hcc)
+                _block_diag(S).add_(lm_lambda * eye6
+                                    * _damping_scale(Hcc, 6))
+                delta_c = _solve_cameras(prob, S, rhs)   # replicated
+            delta_p = _back_substitute(prob, Hpp_inv, b_p, A, delta_c)
+            new_prob = _apply_update(prob, delta_c, delta_p)
+            costs = reduce(torch.stack([torch.sum(r ** 2),
+                                        _reprojection_cost(new_prob)]))
+        return new_prob, costs[0], costs[1]
+
+    return step
+
+
+def bundle_adjust_sharded(prob: BAProblem, mesh, axis: str = "data",
+                          max_iters: int = 20, lm_lambda0: float = 1e-4,
+                          tol: float = 1e-10, solver: str = "dense",
+                          cg_iters: int = 100) -> Tuple[BAProblem, float]:
+    """The LM loop of :func:`bundle_adjust` over the sharded iteration.
+    ``prob`` is this rank's shard (:func:`shard_problem`); returns this
+    rank's solved shard and the global cost.  Every rank takes the same
+    accept / reject path: the costs are all-reduced."""
+    step = make_sharded_ba_iteration(mesh, axis, solver, cg_iters)
+    plan = BAPlan(prob.obs_cam, prob.n_cams, pairs=solver == "dense")
+    lam = lm_lambda0
+    cost = None
+    for _ in range(max_iters):
+        cand, old_cost, new_cost = step(prob, lam, plan)
+        if cost is None:
+            cost = float(old_cost)
+        new_cost = float(new_cost)
         if new_cost < cost:
             prob = cand
             improved = cost - new_cost

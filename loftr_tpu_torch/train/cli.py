@@ -29,9 +29,17 @@ The loop keeps the JAX package's semantics:
     manager keeps the best ``auc@10`` checkpoints.
 Losses and the other step scalars stay on the device; the logger reads them
 (one synchronisation) only at ``--log-every`` steps.  Left out, as TPU/JAX
-only: the platform-env helper, ``jax.distributed`` and the interleave
-packing under several devices.  Several processes raise in ``Trainer``
-(data parallelism waits for the parallel modules, ``ROADMAP.md``).
+only: the platform-env helper.
+
+Several processes train data-parallel, one device each:
+  torchrun --nproc-per-node N -m loftr_tpu_torch.train ... [--device cpu]
+Each rank joins the process group from torchrun's environment
+(``parallel.mesh.init_process_group``: NCCL on ``cuda:LOCAL_RANK``, gloo
+with ``--device cpu``), trains on its own shard of the scenes with the
+global batch's BatchNorm statistics, loss denominators and summed
+gradients (``train/trainer.py``), evaluates its share of the validation
+pairs and merges the metrics across the ranks; rank 0 alone logs and
+writes checkpoints.
 """
 from __future__ import annotations
 
@@ -52,6 +60,8 @@ from loftr_tpu_torch.data import (DataLoader, MegaDepthDataset,
 from loftr_tpu_torch.data.augment import build_augmentor
 from loftr_tpu_torch.data.sampler import ConcatDataset
 from loftr_tpu_torch.eval.evaluator import DEVICE_SOLVERS, HOST_SOLVERS
+from loftr_tpu_torch.parallel import comm
+from loftr_tpu_torch.parallel.mesh import init_process_group, local_rank
 from loftr_tpu_torch.utils.logging import MetricsLogger, process_rank
 
 
@@ -125,6 +135,9 @@ def build_datasets(args, cfg, world_size, rank):
     with open(args.list_path) as f:
         scenes = [ln.strip() for ln in f if ln.strip()]
     local = get_local_split(scenes, world_size, rank, cfg.trainer.seed)
+    if world_size > 1:
+        print(f"rank {rank} of {world_size}: scenes {' '.join(local)}",
+              flush=True)
     datasets = []
     for scene in local:
         npz = os.path.join(args.npz_root, f"{scene}.npz")
@@ -186,10 +199,16 @@ def main(argv=None):
     from loftr_tpu_torch.train.checkpoint import CheckpointManager
     from loftr_tpu_torch.train.trainer import Trainer
 
-    device = resolve_device(args.device)
-    dist = torch.distributed
-    world_size = (dist.get_world_size()
-                  if dist.is_available() and dist.is_initialized() else 1)
+    device = torch.device(args.device)
+    if (device.type == "cuda" and device.index is None
+            and int(os.environ.get("WORLD_SIZE", "1")) > 1):
+        device = torch.device("cuda", local_rank())
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
+    joined = not comm.initialized()
+    _, world_size = init_process_group(device)
+    joined = joined and comm.initialized()
     rank = process_rank()
 
     cfg = get_config_from_files(
@@ -280,3 +299,5 @@ def main(argv=None):
         logger.close()
         for s, handler in previous.items():
             signal.signal(s, handler)
+        if joined:
+            torch.distributed.destroy_process_group()

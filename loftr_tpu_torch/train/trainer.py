@@ -18,9 +18,25 @@ JAX computes float32 convolutions and products in float32 on the CPU.
 PyTorch's default, TF32 convolutions, cost the accuracy benchmark's seed 2
 0.021-0.034 auc@20 in each of five inits on the H100 (``PERF.md``).
 The bfloat16 path keeps the flags as they are.
+
+Data parallelism (``world_size > 1``, or an explicit ``group``): each
+process is a rank with its rows of the global batch, and a step computes
+what one process computes on the concatenated global batch, as JAX's step
+under a data-sharded mesh does.  Inside ``parallel.comm.data_parallel``
+BatchNorm takes the global batch statistics, every loss denominator is
+global and the selection draws its noise at the global batch's shape, so
+the loss of a rank is its part of the global loss; the parameter
+gradients are summed over the ranks (one all-reduce) before the norm and
+the clip, and the scalars are the global ones.  Averaging per-rank losses,
+as plain DDP does, would weigh each rank's matches by its own counts.  The
+module starts from rank 0's state on every rank (``parallel.mesh.
+replicate``), and the packing switches to ``interleave`` for
+``world_size > 1``, as in JAX.  A group of one rank gives the plain step
+bit for bit.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -30,6 +46,8 @@ from loftr_tpu_torch.api import resolve_device, with_config
 from loftr_tpu_torch.config import Config
 from loftr_tpu_torch.losses import loftr_loss
 from loftr_tpu_torch.models.matcher import LoFTR
+from loftr_tpu_torch.parallel import comm
+from loftr_tpu_torch.parallel.mesh import replicate
 from loftr_tpu_torch.structs import MatchInput, MatchResult
 from loftr_tpu_torch.supervision import coarse_supervision, fine_supervision
 from loftr_tpu_torch.train.optim import (build_optimizer, clip_by_global_norm,
@@ -56,12 +74,25 @@ class Trainer:
     """
 
     def __init__(self, config: Config, world_size: int = 1,
-                 batch_size_per_device: int = 1, device="cuda"):
+                 batch_size_per_device: int = 1, device="cuda", group=None):
+        """world_size > 1 trains data-parallel over ``group`` (the default
+        process group when None), which must hold ``world_size`` ranks; a
+        ``group`` of one rank runs the data-parallel step on one process."""
+        self.group = None
+        if world_size > 1 or group is not None:
+            if not comm.initialized():
+                raise RuntimeError(
+                    f"Trainer(world_size={world_size}) needs a process "
+                    "group (parallel.mesh.init_process_group)")
+            self.group = group or torch.distributed.group.WORLD
+            if comm.group_size(self.group) != world_size:
+                raise ValueError(
+                    f"world_size {world_size} but the group holds "
+                    f"{comm.group_size(self.group)} ranks")
         if world_size > 1:
-            raise NotImplementedError(
-                "Trainer(world_size > 1): data-parallel training waits for "
-                "the parallel modules (ROADMAP.md, the parallel item of "
-                "queue 1)")
+            # shard-local two-image packing, as the JAX Trainer
+            config = config.replaced(
+                {"loftr": {"batch_packing": "interleave"}})
         self.config = config
         self.device = resolve_device(device)
         self.true_lr, self.warmup_step = config.scaled_lr(
@@ -83,6 +114,8 @@ class Trainer:
         else:
             init_weights(model, seed)
         model = model.to(self.device).train()
+        if self.group is not None:
+            replicate(model, self.group)
         opt = build_optimizer(model.parameters(), self.config.trainer,
                               self.true_lr)
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -134,13 +167,22 @@ class Trainer:
         """One (micro-)step on ``batch``; ``noise`` replaces the generator's
         draws for the match selection (tests)."""
         batch = batch.to(self.device)
-        with true_float32(self.config.loftr.dtype == "float32"):
+        scope = (contextlib.nullcontext() if self.group is None else
+                 comm.data_parallel(self.group, batch.image0.shape[0]))
+        with true_float32(self.config.loftr.dtype == "float32"), scope:
             loss, scalars, _ = self.forward_loss(state, batch, noise)
             params = list(state.module.parameters())
             grads = torch.autograd.grad(loss, params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
         scalars = {k: v.detach() for k, v in scalars.items()}
+        if self.group is not None:
+            # the ranks' parts of the global loss and its gradient
+            comm.flat_all_reduce_(grads, self.group)
+            names = sorted(scalars)
+            total = comm.reduce_sum(torch.stack([scalars[k] for k in names]),
+                                    self.group)
+            scalars = dict(zip(names, total.unbind()))
         scalars["grad_norm"] = global_norm(grads)
         scalars["lr"] = self.apply_gradients(state, grads)
         return state, scalars

@@ -207,7 +207,9 @@ def test_no_jax_imports_in_port_sources(root):
                 "train/__main__.py", "utils/logging.py",
                 "tools/synthetic_benchmark.py", "tools/seed_sweep.py",
                 "utils/folding.py", "utils/channel_pad.py",
-                "serve/__init__.py", "serve/service.py"} <= names
+                "serve/__init__.py", "serve/service.py",
+                "parallel/__init__.py", "parallel/comm.py",
+                "parallel/mesh.py", "parallel/seq_attention.py"} <= names
 
 
 def test_service_default_device_needs_cuda(monkeypatch):

@@ -305,17 +305,22 @@ def test_cli_loads_port_checkpoint(models, data_root, tmp_path, capsys):
     assert a == b == want
 
 
-def test_evaluate_dataset_one_process_only(models, data_root):
+def test_evaluate_dataset_shards_and_checks_the_group(models, data_root,
+                                                     tmp_path):
     """evaluate_dataset shards pair indices exactly; one process gives
-    evaluate_batches' result, several raise (their merge waits for the
-    parallel modules)."""
+    evaluate_batches' result, also inside a process group of one rank
+    (the merge across ranks: tests/test_torch_parallel_comm.py); a
+    world_size other than the group's raises."""
+    from torch_parallel_worker import one_rank_group
     _, _, tcfg, model = models
     ev = Evaluator(tcfg, model, pose_solver="native", device="cpu")
     ds = td.sampler.ConcatDataset(_datasets(td, data_root))
     got = ev.evaluate_dataset(ds, batch_size=2, num_workers=2)
     assert got == ev.evaluate_batches(_batches(td, data_root))
-    with pytest.raises(NotImplementedError, match="parallel item"):
+    with pytest.raises(ValueError, match="world_size 2"):
         ev.evaluate_dataset(ds, world_size=2, rank=0)
+    with one_rank_group(tmp_path / "store"):
+        assert ev.evaluate_dataset(ds, batch_size=2, num_workers=2) == got
 
 
 def test_figure_sink_gets_the_first_pairs(models, data_root):

@@ -120,6 +120,31 @@ def test_clip_by_global_norm_is_optax_form():
     assert torch.equal(small[0], torch.full((2,), 0.1))   # factor exactly 1
 
 
-def test_trainer_world_size_gt_1_is_not_ported():
-    with pytest.raises(NotImplementedError, match="the parallel item"):
-        Trainer(get_config("indoor_ds"), world_size=2, device="cpu")
+def test_trainer_one_rank_group_gives_the_plain_step(tmp_path):
+    """Trainer(group=...) runs the data-parallel step (the collectives of
+    BatchNorm, the losses, the selection and the gradient sum) over a gloo
+    group of this process alone: the plain step's scalars and parameters
+    bit for bit.  world_size > 1 without a process group raises."""
+    from torch_parallel_worker import one_rank_group
+    from torch_train_common import TINY, to_torch, train_batch
+    cfg = get_config("indoor_ds", {"loftr": TINY, "trainer": {
+        "scheduler_interval": "step"}})
+    batch = to_torch(train_batch(B=2, seed=11))
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        plain = Trainer(cfg, batch_size_per_device=2, device="cpu")
+        st, sc = plain.train_step(plain.init_state(seed=0), batch)
+        with one_rank_group(tmp_path / "store") as group:
+            dp = Trainer(cfg, batch_size_per_device=2, device="cpu",
+                         group=group)
+            st1, sc1 = dp.train_step(dp.init_state(seed=0), batch)
+    finally:
+        torch.set_num_threads(n)
+    assert dp.group is group and plain.group is None
+    assert {k: float(v) for k, v in sc.items()} == \
+        {k: float(v) for k, v in sc1.items()}
+    for k, v in st.module.state_dict().items():
+        assert torch.equal(v, st1.module.state_dict()[k]), k
+    with pytest.raises(RuntimeError, match="process group"):
+        Trainer(cfg, world_size=2, device="cpu")

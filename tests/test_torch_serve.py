@@ -229,11 +229,42 @@ def test_service_rejects_after_close(weights):
                    np.zeros((64, 64), np.float32))
 
 
-def test_service_mesh_raises(weights):
-    """tests/test_serve.py's mesh test: serving across devices waits for
-    the parallel modules, and says so."""
-    with pytest.raises(NotImplementedError, match="parallel item"):
-        _service(weights, mesh=object())
+def test_service_mesh_splits_rows_over_devices(weights):
+    """tests/test_serve.py's mesh test on two CPU "devices": one replica
+    each, every batch's rows split between them, rungs rounded up to
+    multiples of 2; the matches within that test's 1e-3 px of the direct
+    single-pair call; interleave packing.  A mesh without a 'data' axis
+    raises."""
+    svc = _service(weights, mesh={"data": ["cpu", "cpu"]}, flush_ms=40.0,
+                   wire_dtype="float32")
+    assert svc.batch_sizes == (2, 4)
+    assert svc.config.loftr.batch_packing == "interleave"
+    assert len(svc._models) == 2 and svc._models[0] is not svc._models[1]
+    shards = []
+    orig = svc._finish
+
+    def finish(host, event):
+        shards.append([tuple(h.shape) for h in host])
+        return orig(host, event)
+
+    svc._finish = finish
+    rng = np.random.RandomState(11)
+    imgs = [(rng.rand(64, 64).astype(np.float32),
+             rng.rand(64, 64).astype(np.float32)) for _ in range(6)]
+    with svc:
+        futs = [svc.submit(a, b) for a, b in imgs]
+        meshed = [f.result(timeout=120) for f in futs]
+    for (a, b), r in zip(imgs, meshed):
+        k0, k1, conf = _port_direct(weights, svc, a, b)
+        np.testing.assert_allclose(r["mkpts0"], k0, atol=1e-3)
+        np.testing.assert_allclose(r["mkpts1"], k1, atol=1e-3)
+        np.testing.assert_allclose(r["mconf"], conf, atol=1e-5)
+    snap = svc.stats.snapshot()
+    assert snap["requests"] == 6 and len(shards) == snap["batches"]
+    for sh in shards:              # two equal shards of [rows, K, 6]
+        assert len(sh) == 2 and sh[0] == sh[1] and sh[0][2] == 6
+    with pytest.raises(ValueError, match="'data' axis"):
+        _service(weights, mesh={"model": ["cpu"]})
 
 
 def test_inline_and_pipelined_stacking_agree(weights):
