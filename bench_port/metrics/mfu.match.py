@@ -1,0 +1,14 @@
+"""The match cells' whole-step share of the card's bf16 peak: the analytic
+forward FLOPs of a pair at the published widths (``counts/model_flops``)
+times the traced window's pairs a second, over 989 TFLOP/s."""
+from bench_port.counts.kernels import PEAK_BF16_FLOPS
+from bench_port.counts.model_flops import pair_forward
+
+UNIT = "%"
+
+
+def read(ctx):
+    if ctx["kind"] != "offline" or ctx["rate"] <= 0:
+        return None
+    return 100.0 * pair_forward(ctx["H"], ctx["W"], ctx["K"]) \
+        * ctx["rate"] / PEAK_BF16_FLOPS
