@@ -1,0 +1,11 @@
+"""Milliseconds a pair that the span ``loftr.fine`` holds the card in the
+match cells (window gather, context merge and the fine stage, kernel C):
+its held time over its spans and the pairs of a forward
+(``metrics/_spans.py``)."""
+from bench_port.metrics._spans import held_ms
+
+UNIT = "ms/pair"
+
+
+def read(ctx):
+    return held_ms(ctx, "offline", "loftr.fine", ctx["B"])

@@ -39,6 +39,7 @@ Submodule names follow the reference state_dict (``backbone``,
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -57,8 +58,21 @@ from loftr_tpu_torch.ops.packing import pack_rows, unpack_rows
 from loftr_tpu_torch.ops.windows import (gather_fine_windows,
                                          gather_fine_windows_direct)
 from loftr_tpu_torch.structs import CoarseMatches, MatchInput, MatchResult
+from loftr_tpu_torch.utils.profiler import span
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _stage(name: str):
+    """Run the decorated stage method inside ``span(name)``, so every
+    caller's trace shows the stage."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def staged(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return staged
+    return wrap
 
 
 class FinePreprocess(nn.Module):
@@ -118,8 +132,10 @@ class LoFTR(nn.Module):
     def dtype(self) -> torch.dtype:
         return DTYPES[self.config.dtype]
 
-    # -- stages, in order (separate so a caller can time each one) --------
+    # -- stages, in order (separate so a caller can time each one; each
+    #    runs in its ``loftr.<stage>`` span) --------------------------------
 
+    @_stage("loftr.extract")
     def extract(self, inp: MatchInput) -> Features:
         """[1] backbone + [2] position encoding and flatten."""
         cfg = self.config
@@ -144,6 +160,7 @@ class LoFTR(nn.Module):
         return Features(feat_c0, feat_c1, feat_f0.contiguous(),
                         feat_f1.contiguous(), mask_c0, mask_c1)
 
+    @_stage("loftr.coarse")
     def coarse(self, f: Features, train: bool = False) -> Features:
         """[3] coarse transformer.  The kernel is inference only and
         computes linear attention: with ``coarse.attention == "full"`` the
@@ -187,6 +204,7 @@ class LoFTR(nn.Module):
                 and mc.match_type == "dual_softmax" and not mc.sparse_spvs
                 and cfg.loss.coarse_type == "focal")
 
+    @_stage("loftr.match")
     def match(self, f: Features, inp: MatchInput, train: bool = False,
               generator: Optional[torch.Generator] = None,
               gt_j: Optional[torch.Tensor] = None,
@@ -284,6 +302,7 @@ class LoFTR(nn.Module):
                 [win1, c1w[:, :, None, :].expand(B, K, ww, d_f)], dim=-1))
         return win0, win1
 
+    @_stage("loftr.fine")
     def fine(self, f: Features, matches: CoarseMatches, inp: MatchInput,
              train: bool = False) -> torch.Tensor:
         """[5] fine windows + coarse context, [6]+[7] fine stage.

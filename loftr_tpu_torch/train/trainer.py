@@ -53,6 +53,7 @@ from loftr_tpu_torch.supervision import coarse_supervision, fine_supervision
 from loftr_tpu_torch.train.optim import (build_optimizer, clip_by_global_norm,
                                          global_norm, lr_schedule)
 from loftr_tpu_torch.utils.precision import true_float32
+from loftr_tpu_torch.utils.profiler import span
 from loftr_tpu_torch.utils.weights import init_weights
 
 
@@ -127,14 +128,17 @@ class Trainer:
         """Supervision, training forward and loss.  Returns (loss, scalars,
         MatchResult)."""
         model = state.module.train()
-        spv = coarse_supervision(batch, self._res_c)
-        out = model(batch, train=True, generator=state.generator,
-                    gt_j=spv.gt_j, gt_valid=spv.gt_valid, noise=noise)
-        expec_f_gt = fine_supervision(spv, out.coarse, batch, self._res_f,
-                                      self._window)
-        loss, scalars = loftr_loss(out, spv, expec_f_gt, batch,
-                                   self.config.loftr.loss,
-                                   self.config.loftr.match_coarse)
+        with span("train.supervision"):
+            spv = coarse_supervision(batch, self._res_c)
+        with span("train.forward"):
+            out = model(batch, train=True, generator=state.generator,
+                        gt_j=spv.gt_j, gt_valid=spv.gt_valid, noise=noise)
+        with span("train.loss"):
+            expec_f_gt = fine_supervision(spv, out.coarse, batch,
+                                          self._res_f, self._window)
+            loss, scalars = loftr_loss(out, spv, expec_f_gt, batch,
+                                       self.config.loftr.loss,
+                                       self.config.loftr.match_coarse)
         return loss, scalars, out
 
     def apply_gradients(self, state: TrainState,
@@ -165,26 +169,32 @@ class Trainer:
     def train_step(self, state: TrainState, batch: MatchInput,
                    noise: Optional[dict] = None) -> Tuple[TrainState, dict]:
         """One (micro-)step on ``batch``; ``noise`` replaces the generator's
-        draws for the match selection (tests)."""
-        batch = batch.to(self.device)
+        draws for the match selection (tests).  Its stages run in the spans
+        ``train.upload``, ``train.supervision``, ``train.forward`` (the
+        ``loftr.*`` spans inside), ``train.loss``, ``train.backward`` and
+        ``train.update``."""
+        with span("train.upload"):
+            batch = batch.to(self.device)
         scope = (contextlib.nullcontext() if self.group is None else
                  comm.data_parallel(self.group, batch.image0.shape[0]))
         with true_float32(self.config.loftr.dtype == "float32"), scope:
             loss, scalars, _ = self.forward_loss(state, batch, noise)
-            params = list(state.module.parameters())
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
-        scalars = {k: v.detach() for k, v in scalars.items()}
-        if self.group is not None:
-            # the ranks' parts of the global loss and its gradient
-            comm.flat_all_reduce_(grads, self.group)
-            names = sorted(scalars)
-            total = comm.reduce_sum(torch.stack([scalars[k] for k in names]),
-                                    self.group)
-            scalars = dict(zip(names, total.unbind()))
-        scalars["grad_norm"] = global_norm(grads)
-        scalars["lr"] = self.apply_gradients(state, grads)
+            with span("train.backward"):
+                params = list(state.module.parameters())
+                grads = torch.autograd.grad(loss, params, allow_unused=True)
+                grads = [torch.zeros_like(p) if g is None else g
+                         for p, g in zip(params, grads)]
+        with span("train.update"):
+            scalars = {k: v.detach() for k, v in scalars.items()}
+            if self.group is not None:
+                # the ranks' parts of the global loss and its gradient
+                comm.flat_all_reduce_(grads, self.group)
+                names = sorted(scalars)
+                total = comm.reduce_sum(
+                    torch.stack([scalars[k] for k in names]), self.group)
+                scalars = dict(zip(names, total.unbind()))
+            scalars["grad_norm"] = global_norm(grads)
+            scalars["lr"] = self.apply_gradients(state, grads)
         return state, scalars
 
     def eval_step(self, state: TrainState, batch: MatchInput) -> MatchResult:

@@ -7,8 +7,11 @@ src/utils/profiler.py):
     printable summary;
   - :func:`trace`: ``torch.profiler`` over a block, written as a Chrome
     trace (the PyTorchProfiler analogue, profiler.py:34-35);
-  - each region is also a ``torch.profiler.record_function`` range, so its
-    ops group in traces.
+  - :func:`span`: a ``torch.profiler.record_function`` range while a
+    profiler records, else a shared no-op context; the matcher's and the
+    trainer's stage spans and each :class:`RegionProfiler` region are
+    spans, so their ops group in traces and a run with no profiler pays
+    one flag check a span.
 
 The port runs one process until the parallel modules land, so the profiler
 is always that of rank 0.
@@ -22,6 +25,19 @@ from collections import defaultdict
 from typing import Dict, Optional
 
 import torch
+
+
+_NO_SPAN = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` while a
+    ``torch.profiler`` records (host range and its device-side shadow in
+    the trace), else one shared no-op context.  Never synchronises."""
+    if _profiling():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def hard_sync() -> None:
@@ -38,16 +54,16 @@ class RegionProfiler:
         self.sync = sync
         self.times: Dict[str, list] = defaultdict(list)
 
-    @contextlib.contextmanager
     def profile(self, name: str):
-        if not self.enabled:
-            with torch.profiler.record_function(name):
-                yield
-            return
+        """A context timing region ``name``; disabled, just its span."""
+        return self._timed(name) if self.enabled else span(name)
+
+    @contextlib.contextmanager
+    def _timed(self, name: str):
         if self.sync:
             hard_sync()
         t0 = time.perf_counter()
-        with torch.profiler.record_function(name):
+        with span(name):
             yield
         if self.sync:
             hard_sync()
