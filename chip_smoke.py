@@ -33,7 +33,13 @@ Phases, each of which must pass (any failure exits non-zero):
      timed at 2048 and 1024 (events and profiled device time); the upsample
      kernel in both dtypes at the backbone's [2,256,60,80] and
      [2,196,120,160], [1,3,5,7], [1,4,1,9] and [2,8,7,80], timed at the
-     first two);
+     first two; the FPN merge ``upsample2x_add`` on channels-last maps in
+     both dtypes at the four merge sites of the benchmark's batches (coarser
+     map [16,256,60,80] and [16,256,120,160] of indoor_ds at B=8,
+     [8,256,105,105] and [8,256,210,210] of outdoor_ds at B=4) and at
+     [3,196,15,1] and [2,13,1,9], bit-equal in bfloat16 to its plain
+     version on the CPU copy, timed at the four sites against the bytes
+     bound);
   3. the inference slice in float32, card (kernels) against CPU (plain);
   4. the flagship indoor_ds preset in bfloat16 at 640x480: ``match_pair``
      at B=1 and the batched model call at B=8, timed with CUDA events, with
@@ -53,9 +59,10 @@ Phases, each of which must pass (any failure exits non-zero):
   8. the OT main path in bfloat16 at 640x480: ``match_pair`` with
      ``indoor_ot`` at B=1 and the batched model call at B=8, timed as in
      phase 4 (the match stage's device time split into kernel E's bf16
-     passes and combines); then, once each at B=1, the backbone with the
-     upsample switch on and the fine layer stack with ``fused_window_attn``
-     on, each compared with the switch off;
+     passes and combines); then the backbone at B=8 with the FPN merge
+     kernel against the same backbone with the plain merge computed on the
+     CPU copy (equal maps, two merge launches), and once at B=1 the fine
+     layer stack with ``fused_window_attn`` on against the switch off;
   9. ``Trainer.train_step`` with ``indoor_ot`` in bfloat16 at B=2: 4 steps,
      finite losses, a finite non-zero gradient into ``bin_score``;
  10. the evaluation path: synthetic MegaDepth scenes (2 x 3 views, 6
@@ -210,10 +217,15 @@ def cuda_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=10, tries=3):
+def device_ms(fn, iters=10, tries=3, per_launch=False):
     """Device time per call of ``fn`` from the profiler, by kernel, with the
     sum under "total"; None when the profiler sees no device time in any of
-    ``tries`` windows (a window now and then records no kernel at all)."""
+    ``tries`` windows (a window now and then records no kernel at all).
+    Late in a long process a window loses some of its kernel records (6-8
+    of 10 launches of the merge kernel; 1-2% of a many-kernel call's), so
+    such a sum reads low.  With ``per_launch`` each kernel's time is the
+    mean of its own records, which lost records leave unbiased: the time a
+    call of an ``fn`` that launches each of its kernels once."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -231,7 +243,8 @@ def device_ms(fn, iters=10, tries=3):
                         .split("(")[0].replace("void ", ""))
                 name = (base[len("loftr::"):] if base.startswith("loftr::")
                         else base.split("<")[0].split("::")[-1])
-                per[name] = per.get(name, 0.0) + t / iters / 1e3
+                n = e.count if per_launch else iters
+                per[name] = per.get(name, 0.0) + t / n / 1e3
         if per:
             return {"total": sum(per.values()), **per}
     return None
@@ -323,7 +336,8 @@ def ptxas_summary():
                     int(m.group(1))
         if m and name and src in ("window_attention.cu", "upsample.cu"):
             k = re.search(r"(window_attn_bf16|window_attn_kernel|"
-                          r"upsample2x_band|upsample2x_kernel)I(\w+?)EEv",
+                          r"upsample2x_band|upsample2x_kernel|"
+                          r"upsample2x_add_nhwc)I(\w+?)EEv",
                           name)
             if k:
                 args = re.sub(r"^f(?=L|$)", "float,", k.group(2))
@@ -1114,6 +1128,106 @@ def window_upsample_checks(dev, log, results):
         emit({"phase": 2, "kernel": k, "timing": results[k]}, log)
 
 
+def merge_checks(dev, log, results):
+    """The FPN merge kernel (``upsample2x_add``: lateral + x2 upsample of
+    the coarser map, channels-last) against its plain version on the CPU
+    copy of the inputs, at the four merge sites of the benchmark's batches
+    and two ragged shapes, and its times at the four sites.  Its row of the
+    kernels line is the indoor_ds 1/2 site in bf16 (the match_b8 cell's
+    largest merge)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from loftr_tpu_torch.ops.kernels import upsample as KG
+
+    rng = np.random.RandomState(13)
+    f32, bf16 = torch.float32, torch.bfloat16
+    cl = torch.channels_last
+    # coarser map [B, C, H, W] of each site: indoor_ds at B=8 (16 images,
+    # 640x480), outdoor_ds at B=4 (8 images, 840x840), the 1/4 and the 1/2
+    # merge; then C = 196 (4 channels a thread) with W = 1 and C = 13 (one
+    # value a thread) with H = 1
+    sites = {"indoor_ds_quarter": (16, 256, 60, 80),
+             "indoor_ds_half": (16, 256, 120, 160),
+             "outdoor_ds_quarter": (8, 256, 105, 105),
+             "outdoor_ds_half": (8, 256, 210, 210)}
+    # tolerances: bfloat16 -- none, the same float sums rounded at the same
+    # places; float32 -- two-term float sums, fused or not (kernel G's)
+    tol = {f32: 1e-6, bf16: 0.0}
+    times, err = {}, {}
+    for name, shp in [*sites.items(), ("ragged_w1", (3, 196, 15, 1)),
+                      ("ragged_h1", (2, 13, 1, 9))]:
+        b, c, h, w = shp
+        x = rng.randn(*shp).astype(np.float32)
+        lat = rng.randn(b, c, 2 * h, 2 * w).astype(np.float32)
+        for dt in (f32, bf16):
+            xt = torch.from_numpy(x).to(dt).to(dev, memory_format=cl)
+            lt = torch.from_numpy(lat).to(dt).to(dev, memory_format=cl)
+            got = KG.upsample2x_add(lt, xt)
+            card = KG.upsample2x_add_plain(lt, xt)
+            torch.cuda.synchronize()
+            want = KG.upsample2x_add_plain(lt.cpu(), xt.cpu()).to(dev)
+            d = (got.float() - want.float()).abs()
+            bound = tol[dt] * (1 + want.float().abs())
+            ok = (got.shape == want.shape and got.dtype == dt
+                  and got.is_contiguous(memory_format=cl)
+                  and bool((d <= bound).all()))
+            rec = {"phase": 2, "kernel": "upsample_add", "site": name,
+                   "shape": list(shp), "dtype": str(dt)[6:],
+                   "max_abs_err": float(d.max()),
+                   "unequal": int((d > 0).sum()),
+                   "max_abs_diff_from_plain_on_card":
+                       float((got.float() - card.float()).abs().max()),
+                   "plain_on_card_unequal": int((card != want).sum()),
+                   "tol": tol[dt], "ok": ok}
+            emit(rec, log)
+            check(ok, f"upsample_add disagrees: {rec}")
+            err[(name, dt)] = rec["max_abs_err"]
+            del got, card, want, d, bound
+        if name in sites:
+            def run():
+                return KG.upsample2x_add(lt, xt)
+            dms = device_ms(run, per_launch=True) or {}
+            n = b * c * h * w           # coarser map; lateral and sum 4n
+            bnd, by = bound_ms(4 * n * 10, 9 * n * 2, PEAK_F32_FLOPS)
+            times[name] = dict(
+                ms=cuda_ms(run, iters=20), device_ms=dms.get("total"),
+                variant=sorted(k for k in dms if k != "total"),
+                plain_ms=cuda_ms(lambda: KG.upsample2x_add_plain(lt, xt),
+                                 iters=10),
+                library_ms=cuda_ms(lambda: lt + F.interpolate(
+                    xt, scale_factor=2, mode="bilinear", align_corners=True),
+                    iters=10),
+                bound_ms=bnd, bound_by=by)
+            t = times[name]
+            if t["device_ms"] is not None and t["device_ms"] < bnd:
+                # a device time under the bytes bound is no reading
+                t["device_ms_invalid"], t["device_ms"] = t["device_ms"], None
+            t["device_over_bound"] = (None if t["device_ms"] is None
+                                      else t["device_ms"] / bnd)
+        del xt, lt
+        torch.cuda.empty_cache()
+    emit({"phase": 2, "kernel": "upsample_add", "timing": times,
+          "bound": "lateral and sum once, the coarser map once (bytes; "
+                   "device memory); 10 flop an output (float32 rate)",
+          "library": "lateral + torch.nn.functional.interpolate("
+                     "scale_factor=2, mode='bilinear', align_corners=True)"},
+         log)
+    t = times["indoor_ds_half"]
+    results["upsample_add"] = dict(
+        max_abs_err=err[("indoor_ds_half", bf16)], ms=t["ms"],
+        device_ms=t["device_ms"], variant=t["variant"],
+        plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=t["library_ms"],
+        bound_unit="device memory",
+        library="lateral + torch.nn.functional.interpolate(scale_factor=2, "
+                "mode='bilinear', align_corners=True)",
+        shape="coarser map [16,256,120,160], lateral [16,256,240,320], "
+              "channels-last bf16 (the other sites under 'sites'; checked "
+              "there and at [3,196,15,1], [2,13,1,9])",
+        sites={k: v for k, v in times.items() if k != "indoor_ds_half"})
+
+
 def focal_case(rng, B, L, C, n_gt, S=None, n_alike=1500, cells=None):
     """Features at a scale where the confidences of interest lie inside the
     clamp (1e-6, 1 - 1e-6): 2 n planted pairs in each image pair (sim about
@@ -1528,7 +1642,7 @@ def slice_fp32(dev, log, phase=3, preset="indoor_ds",
     counts = read_counts()
     emit({"phase": phase, "preset": preset, "launches_one_forward": counts},
          log)
-    expect_counts(counts, coarse_layer=12, fine_stage=1,
+    expect_counts(counts, coarse_layer=12, fine_stage=1, upsample_add=2,
                   **{matcher_kernel: 1})
     t0 = time.perf_counter()
     out_c = cpu_model(inp_c)
@@ -1591,7 +1705,7 @@ def flagship_bf16(dev, log, phase=4, preset="indoor_ds",
           "launches": main_counts, "n_matches": int(out["mconf"].shape[0])},
          log)
     expect_counts(main_counts, coarse_layer=12, fine_stage=1,
-                  **{matcher_kernel: 1})
+                  upsample_add=2, **{matcher_kernel: 1})
 
     t_mp = cuda_ms(lambda: match_pair(img0, img1, matcher), iters=iters)
     model = with_config(matcher, {"dtype": "bfloat16"})
@@ -1879,53 +1993,81 @@ def train_bf16(dev, log, steps=8):
 # --------------------------------------------------------------------------
 
 def ot_switches(dev, log, matcher):
-    """The backbone with the upsample switch on, and the fine layer stack
-    with ``fused_window_attn`` on followed by ``fine_match``, each once at
-    B=1 with the launch counters reset just before, and each compared with
-    the switch off.  Returns the launch counts of the two runs."""
+    """The backbone at B=8 with the FPN merge kernel against the same
+    backbone with the plain merge computed on the CPU copy of its operands,
+    and the fine layer stack with ``fused_window_attn`` on followed by
+    ``fine_match`` once at B=1 against the switch off, each with the launch
+    counters reset just before.  Returns the launch counts of the two
+    runs."""
     import torch
     import loftr_tpu_torch.models.backbone as BB
     from loftr_tpu_torch.api import with_config
     from loftr_tpu_torch.models.transformer import LocalFeatureTransformer
     from loftr_tpu_torch.ops.fine_match import fine_match
+    from loftr_tpu_torch.ops.kernels import upsample as KG
     from loftr_tpu_torch.structs import MatchInput
 
     model = with_config(matcher, {"dtype": "bfloat16"})
+    a, b = images(4, 8)
+    inp8 = MatchInput(image0=torch.from_numpy(a[..., None]).to(dev),
+                      image1=torch.from_numpy(b[..., None]).to(dev))
+    model.extract(inp8)                                      # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    on = model.extract(inp8)
+    torch.cuda.synchronize()
+    up_counts = read_counts()
+    t_on = cuda_ms(lambda: model.extract(inp8))
+    merge = BB._merge
+    sites = []
+
+    def cpu_merge(outconv, x, coarse, train):
+        # the plain merge on the CPU, where its products sum in float32
+        sites.append(list(coarse.shape))
+        lateral = BB.apply_conv(outconv, x)
+        return KG.upsample2x_add_plain(lateral.cpu(), coarse.cpu()).to(
+            lateral.device, memory_format=torch.channels_last)
+
+    def card_merge(outconv, x, coarse, train):
+        # the plain merge on the card, as before the kernel
+        return KG.upsample2x_add_plain(BB.apply_conv(outconv, x), coarse)
+    try:
+        BB._merge = cpu_merge
+        ref = model.extract(inp8)
+        BB._merge = card_merge
+        card = model.extract(inp8)
+        t_card = cuda_ms(lambda: model.extract(inp8))
+    finally:
+        BB._merge = merge
+    expect_counts(up_counts, upsample_add=2)
+    rec = {"phase": 8, "part": "backbone FPN merge kernel, B=8",
+           "launches": up_counts, "merge_sites": sites,
+           "extract_ms_kernel": t_on, "extract_ms_plain_merge": t_card}
+    # the kernel's maps equal those of the plain merge on the CPU copy bit
+    # for bit (the convolutions after it see the same inputs); against the
+    # plain merge on the card, where cuBLAS may round a few outputs
+    # otherwise, the distance is reported and held to the bf16 noise of
+    # two 3x3 convolutions
+    ok = len(sites) == 2
+    for name in ("feat_c0", "feat_c1", "feat_f0", "feat_f1"):
+        x, y = getattr(on, name), getattr(ref, name)
+        z = getattr(card, name).float()
+        d = (x.float() - z).abs()
+        rec[name + "_equal_to_cpu_merge"] = bool(torch.equal(x, y))
+        rec[name + "_max_abs_diff_plain_on_card"] = float(d.max())
+        rec[name + "_max_abs"] = float(z.abs().max())
+        ok = ok and bool(torch.equal(x, y)) \
+            and float(d.max()) <= 2 ** -5 * float(z.abs().max()) \
+            and float(d.mean()) <= 1e-3 * float(z.abs().max())
+    rec["ok"] = ok
+    emit(rec, log)
+    check(ok, f"backbone with the merge kernel disagrees: {rec}")
+    del on, ref, card, inp8
+
     a, b = images(4, 1)
     inp = MatchInput(image0=torch.from_numpy(a[..., None]).to(dev),
                      image1=torch.from_numpy(b[..., None]).to(dev))
     off = model.extract(inp)
-    t_off = cuda_ms(lambda: model.extract(inp))
-    BB._USE_PALLAS_UPSAMPLE = True
-    try:
-        model.extract(inp)                                   # warm-up
-        torch.cuda.synchronize()
-        reset_counts()
-        on = model.extract(inp)
-        torch.cuda.synchronize()
-        up_counts = read_counts()
-        t_on = cuda_ms(lambda: model.extract(inp))
-    finally:
-        BB._USE_PALLAS_UPSAMPLE = False
-    expect_counts(up_counts, upsample=2)
-    rec = {"phase": 8, "switch": "backbone _USE_PALLAS_UPSAMPLE",
-           "launches": up_counts, "backbone_ms_off": t_off,
-           "backbone_ms_on": t_on}
-    # tolerance: the kernel's maps equal the matmul form's to one bf16 ulp
-    # on a few entries; two 3x3 convolutions carry that on, so the feature
-    # maps agree to a few ulps of their largest entry
-    ok = True
-    for name in ("feat_c0", "feat_c1", "feat_f0", "feat_f1"):
-        x, y = getattr(on, name).float(), getattr(off, name).float()
-        d = (x - y).abs()
-        rec[name + "_max_abs_diff"] = float(d.max())
-        rec[name + "_max_abs"] = float(y.abs().max())
-        ok = ok and bool(torch.isfinite(x).all()) \
-            and float(d.max()) <= 2 ** -5 * float(y.abs().max()) \
-            and float(d.mean()) <= 1e-3 * float(y.abs().max())
-    rec["ok"] = ok
-    emit(rec, log)
-    check(ok, f"backbone with the upsample kernel disagrees: {rec}")
 
     # the 1024 windows of this call, through the fine layer stack
     fc = model.coarse(off)
@@ -2199,7 +2341,8 @@ def eval_path(dev, log, smi, n_scenes=2, n_views=3, size=840):
               "pairs": n_pairs, "launches": main_counts,
               "write_data_s": write_s, "cli": cli_runs}, log)
         expect_counts(main_counts, coarse_layer=12 * n_pairs,
-                      dual_softmax=n_pairs, fine_stage=n_pairs)
+                      dual_softmax=n_pairs, fine_stage=n_pairs,
+                      upsample_add=2 * n_pairs)
 
         # timings on batches in memory: model + epipolar errors + solver
         cfg = get_config("outdoor_ds", {
@@ -2525,7 +2668,8 @@ def train_cli_path(dev, log, smi, size=840, steps_per_epoch=4):
         expect_counts(counts, coarse_layer=12 * 2 * n_val,
                       dual_softmax=n_steps + 2 * n_val,
                       fine_stage=2 * n_val, focal_loss_forward=n_steps,
-                      focal_loss_backward=n_steps)
+                      focal_loss_backward=n_steps,
+                      upsample_add=2 * 2 * n_val)
         mc = get_config("outdoor_ds", overrides).loftr.match_coarse
         focal_cli_check(dev, log, size, mc.train_matches or int(
             mc.train_coarse_percent * (size // 8) ** 2))
@@ -3245,7 +3389,8 @@ def serve_path(dev, log, hw=(H, W), hw_big=(840, 840)):
                                  for t in (got[0], got[4], got[5], got[6])),
                    "plain_model_ms": cuda_ms(lambda: plain(inp), iters=5)}
             emit(rec, log)
-            expect_counts(counts)
+            # two backbone calls of two merges, every norm included
+            expect_counts(counts, upsample_add=4)
             check(rec["finite"] and n_valid > 0
                   and rec["coarse_map_shape"] == [
                       1, (hw[0] // 16) * (hw[1] // 16), 512],
@@ -3260,7 +3405,8 @@ def serve_path(dev, log, hw=(H, W), hw_big=(840, 840)):
         ok, d = hold_model(got, _stage_fields(plain, inp),
                            _stage_fields(plain32, inp))
         want = dict(dual_softmax=1, fine_stage=1,
-                    coarse_layer=0 if name == "full_attention" else 12)
+                    coarse_layer=0 if name == "full_attention" else 12,
+                    upsample_add=4)
         rec = {"phase": 12, "option": name, "launches": counts,
                "plain_path": ("the coarse stack (attention 'full': kernel "
                               "A computes linear attention)"
@@ -3487,7 +3633,7 @@ def sfm_cli_run(dev, log, n_frames, hw):
     check(n_match == 2 * (len(range(0, n_frames, 5)) - 1) - 1,
           f"{n_match} match calls for {n_frames} frames at stride 5")
     expect_counts(counts, coarse_layer=12 * n_match, dual_softmax=n_match,
-                  fine_stage=n_match)
+                  fine_stage=n_match, upsample_add=2 * n_match)
     return counts
 
 
@@ -4430,7 +4576,8 @@ def main(argv=None):
                                ("focal_loss.cu", "focal_loss_bf16"),
                                ("focal_loss.cu", "focal_grad_bf16"),
                                ("window_attention.cu", "window_attn_bf16"),
-                               ("upsample.cu", "upsample2x_band")):
+                               ("upsample.cu", "upsample2x_band"),
+                               ("upsample.cu", "upsample2x_add_nhwc")):
             check(ptxas is None or not any(
                 k.startswith(src_name + ":") and kern in k
                 for k in ptxas["spilling_kernels"]),
@@ -4443,6 +4590,7 @@ def main(argv=None):
                 kernel_checks(dev, log, results)
                 new_kernel_checks(dev, log, results)
                 window_upsample_checks(dev, log, results)
+                merge_checks(dev, log, results)
             # phase 1's SASS sizes, read while phase 2 ran
             t_s = time.perf_counter()
             emit({"phase": 1, "sass_bytes": sass_sizes(sass),
@@ -4456,7 +4604,7 @@ def main(argv=None):
             if 8 in phases:
                 ot_counts, ot_matcher = flagship_bf16(
                     dev, log, 8, "indoor_ot", "sinkhorn")
-                up_counts, wa_counts = ot_switches(dev, log, ot_matcher)
+                _, wa_counts = ot_switches(dev, log, ot_matcher)
                 del ot_matcher
         if 2 in phases:
             train_kernel_checks(dev, log, results)
@@ -4486,18 +4634,22 @@ def main(argv=None):
                    "sinkhorn": ("sinkhorn.cu", "sinkhorn.py:162"),
                    "window_attention": ("window_attention.cu",
                                         "window_attention.py:98"),
-                   "upsample": ("upsample.cu", "upsample.py:48")}
+                   "upsample": ("upsample.cu", "upsample.py:48"),
+                   "upsample_add": ("upsample.cu", "upsample.py:48")}
             # launches: kernels A, B, C in one match_pair call of
             # indoor_ds; kernel D (forward + backward) in the 8 training
             # steps, where kernel B also runs once a step; kernel E in one
             # match_pair call of indoor_ot (with A x12 and C again);
-            # kernels G and F in the two switch runs of phase 8
+            # kernel F in phase 8's fine layer stack; kernel G's FPN merge
+            # (its main-path entry, two a backbone call) and its NCHW
+            # entry (on no path: its row is not held to a launch) in the
+            # match_pair call of indoor_ds
             launches = {k: main_counts[k] for k in
-                        ("coarse_layer", "dual_softmax", "fine_stage")}
+                        ("coarse_layer", "dual_softmax", "fine_stage",
+                         "upsample", "upsample_add")}
             launches["focal_loss"] = (train_counts["focal_loss_forward"]
                                       + train_counts["focal_loss_backward"])
             launches["sinkhorn"] = ot_counts["sinkhorn"]
-            launches["upsample"] = up_counts["upsample"]
             launches["window_attention"] = wa_counts["window_attention"]
             extra = {"dual_softmax": {
                          "train_launches": train_counts["dual_softmax"]},
@@ -4555,7 +4707,10 @@ def main(argv=None):
                         "plain_ms_forward", "ms_B2", "ms_forward_B2",
                         "device_ms_B2", "device_ms_forward_B2",
                         "device_ms_backward_B2", "plain_ms_B2",
-                        "bound_ms_B2", "peak_mem_MiB_B2")
+                        "bound_ms_B2", "peak_mem_MiB_B2", "sites")
+            # kernel G's NCHW entry, the JAX kernel's counterpart, runs on
+            # no path since the FPN merge took its place
+            on_path = set(results) - {"upsample"}
             kernels = []
             for name, r in results.items():
                 kernels.append({
@@ -4566,10 +4721,12 @@ def main(argv=None):
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-                    "bound_unit": r["bound_unit"], **extra.get(name, {}),
+                    "bound_unit": r["bound_unit"],
+                    "main_path": name in on_path, **extra.get(name, {}),
                     **{k: r[k] for k in optional if k in r}})
-            check(len(kernels) == 7
-                  and all(k["launches"] > 0 for k in kernels),
+            check(len(kernels) == 8
+                  and all(k["launches"] > 0 for k in kernels
+                          if k["main_path"]),
                   f"a kernel was launched no time on its main path: {kernels}")
             print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({"ok": True, "device": {

@@ -265,6 +265,133 @@ bool launch(const void* x, const int* ylo, const int* yhi, const float* alo,
 
 }  // namespace band
 
+// The FPN's top-down merge: out = lat + up(x), all three channels-last
+// (NHWC), lat and out [B, 2H, 2W, C], x [B, H, W, C].  up is the function
+// above; the sum is the plain merge's round_T(lat + up), so
+//   out(oy, ox, c) = round_T(lat(oy, ox, c) + round_T(
+//       b_lo t(oy, x_lo, c) + b_hi t(oy, x_hi, c)))
+// with t(oy, x, c) = round_T(a_lo x(y_lo, x, c) + a_hi x(y_hi, x, c)).
+// In bf16 every product of a weight and a value is exact in float, so each
+// two-term float sum rounds once, as the plain version's matrix products
+// over rows with two non-zero entries do.
+//
+// What bounds it: bytes.  The lateral is read once and the sum written
+// once; the coarser map, a quarter as large, is read through L1/L2 (its
+// 2 x 2 taps are shared by neighbouring output pixels).  Nothing is
+// transposed and no intermediate map is formed.
+//
+// A block takes a run of 256 work items of one output row: blockIdx.y is
+// the row (b, oy), so the row's taps are read once a thread and broadcast,
+// and consecutive threads take consecutive channel chunks, then the next
+// pixel, so every load and the store coalesce.  In bf16 a work item is V
+// adjacent channels of one pixel: V = 8 where C is a multiple of 8 and the
+// maps 16-byte aligned (four 16-byte tap loads, one lateral load, one
+// store), V = 4 where C is a multiple of 4 (8-byte words; the unpadded
+// width 196).  Otherwise (float32, other C) a work item is one value.
+namespace nhwc {
+
+using bf16 = __nv_bfloat16;
+
+// V bf16 values as V / 2 32-bit words, loaded and stored in one access
+template <int V> struct Words;
+template <> struct Words<8> { using type = uint4; };
+template <> struct Words<4> { using type = uint2; };
+
+// one value: round_T(l + round_T(b0 t0 + b1 t1)), t0 and t1 the H pass at
+// the two tap columns
+__device__ __forceinline__ float merge1(float v00, float v10, float v01,
+                                        float v11, float a0, float a1,
+                                        float b0, float b1, float l,
+                                        bool bf) {
+  const float t0 = fmaf(a1, v10, a0 * v00);
+  const float t1 = fmaf(a1, v11, a0 * v01);
+  if (bf) {
+    const float u = mma::round_bf16(
+        fmaf(b1, mma::round_bf16(t1), b0 * mma::round_bf16(t0)));
+    return l + u;  // rounded by the caller's store
+  }
+  return l + fmaf(b1, t1, b0 * t0);
+}
+
+// V channels an item (V > 1: bf16 only).  rows = B * 2H output rows.
+template <int V, typename T>
+__global__ void __launch_bounds__(kThreads)
+    upsample2x_add_nhwc(const T* __restrict__ lat, const T* __restrict__ x,
+                        const int* __restrict__ ylo,
+                        const int* __restrict__ yhi,
+                        const float* __restrict__ alo,
+                        const float* __restrict__ ahi,
+                        const int* __restrict__ xlo,
+                        const int* __restrict__ xhi,
+                        const float* __restrict__ blo,
+                        const float* __restrict__ bhi, T* __restrict__ out,
+                        int H, int W, int C, int rows) {
+  const int CV = C / V;                 // items a pixel
+  const int W2 = 2 * W, H2 = 2 * H;
+  const int j = blockIdx.x * kThreads + threadIdx.x;
+  if (j >= W2 * CV) return;
+  const int ox = j / CV, c = (j - ox * CV) * V;
+  const int x0 = xlo[ox], x1 = xhi[ox];
+  const float b0 = blo[ox], b1 = bhi[ox];
+  for (int row = blockIdx.y; row < rows; row += gridDim.y) {
+    const int b = row / H2, oy = row - b * H2;
+    const int y0 = ylo[oy], y1 = yhi[oy];
+    const float a0 = alo[oy], a1 = ahi[oy];
+    const T* img = x + (size_t)b * H * W * C + c;
+    const T* p00 = img + ((size_t)y0 * W + x0) * C;
+    const T* p10 = img + ((size_t)y1 * W + x0) * C;
+    const T* p01 = img + ((size_t)y0 * W + x1) * C;
+    const T* p11 = img + ((size_t)y1 * W + x1) * C;
+    const size_t o = ((size_t)row * W2 + ox) * C + c;
+    if constexpr (V > 1) {
+      using Wd = typename Words<V>::type;
+      auto ld = [](const T* q) { return *reinterpret_cast<const Wd*>(q); };
+      const Wd u00 = ld(p00), u10 = ld(p10), u01 = ld(p01), u11 = ld(p11),
+               ul = ld(lat + o);
+      const uint32_t* q00 = reinterpret_cast<const uint32_t*>(&u00);
+      const uint32_t* q10 = reinterpret_cast<const uint32_t*>(&u10);
+      const uint32_t* q01 = reinterpret_cast<const uint32_t*>(&u01);
+      const uint32_t* q11 = reinterpret_cast<const uint32_t*>(&u11);
+      const uint32_t* ql = reinterpret_cast<const uint32_t*>(&ul);
+      Wd res;
+      uint32_t* rp = reinterpret_cast<uint32_t*>(&res);
+#pragma unroll
+      for (int e = 0; e < V / 2; ++e)
+        rp[e] = mma::pack_bf16(
+            merge1(band::lo_f(q00[e]), band::lo_f(q10[e]),
+                   band::lo_f(q01[e]), band::lo_f(q11[e]), a0, a1, b0, b1,
+                   band::lo_f(ql[e]), true),
+            merge1(band::hi_f(q00[e]), band::hi_f(q10[e]),
+                   band::hi_f(q01[e]), band::hi_f(q11[e]), a0, a1, b0, b1,
+                   band::hi_f(ql[e]), true));
+      *reinterpret_cast<Wd*>(out + o) = res;
+    } else {
+      out[o] = from_f<T>(merge1(to_f(*p00), to_f(*p10), to_f(*p01),
+                                to_f(*p11), a0, a1, b0, b1, to_f(lat[o]),
+                                std::is_same<T, bf16>::value));
+    }
+  }
+}
+
+template <int V, typename T>
+int launch(const void* lat, const void* x, const int* ylo, const int* yhi,
+           const float* alo, const float* ahi, const int* xlo,
+           const int* xhi, const float* blo, const float* bhi, void* out,
+           int B, int C, int H, int W, cudaStream_t st) {
+  const long long rows = (long long)B * 2 * H;
+  const long long items = 2LL * W * (C / V);
+  if (rows > 0x7fffffffLL || items > 0x7fffffffLL - kThreads)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((items + kThreads - 1) / kThreads),
+                  (unsigned)(rows < 65535 ? rows : 65535));
+  upsample2x_add_nhwc<V, T><<<grid, kThreads, 0, st>>>(
+      (const T*)lat, (const T*)x, ylo, yhi, alo, ahi, xlo, xhi, blo, bhi,
+      (T*)out, H, W, C, (int)rows);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace nhwc
+
 template <typename T>
 int launch(const void* x, const int* ylo, const int* yhi, const float* alo,
            const float* ahi, const int* xlo, const int* xhi, const float* blo,
@@ -306,4 +433,26 @@ extern "C" int loftr_upsample2x(const void* x, const void* ylo,
   return fn(x, (const int*)ylo, (const int*)yhi, (const float*)alo,
             (const float*)ahi, (const int*)xlo, (const int*)xhi,
             (const float*)blo, (const float*)bhi, out, BC, H, W, st);
+}
+
+// out = lat + upsample2x(x), channels-last: lat, out [B, 2H, 2W, C] and
+// x [B, H, W, C] (T), dense.  Tap tables as loftr_upsample2x's.
+extern "C" int loftr_upsample2x_add(const void* lat, const void* x,
+                                    const void* ylo, const void* yhi,
+                                    const void* alo, const void* ahi,
+                                    const void* xlo, const void* xhi,
+                                    const void* blo, const void* bhi,
+                                    void* out, int B, int C, int H, int W,
+                                    int dtype, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (B == 0 || C == 0 || H == 0 || W == 0) return (int)cudaGetLastError();
+  const uintptr_t a = (uintptr_t)lat | (uintptr_t)x | (uintptr_t)out;
+  using bf16 = __nv_bfloat16;
+  auto fn = dtype != 1                     ? loftr::nhwc::launch<1, float>
+            : C % 8 == 0 && a % 16 == 0 ? loftr::nhwc::launch<8, bf16>
+            : C % 4 == 0 && a % 8 == 0  ? loftr::nhwc::launch<4, bf16>
+                                        : loftr::nhwc::launch<1, bf16>;
+  return fn(lat, x, (const int*)ylo, (const int*)yhi, (const float*)alo,
+            (const float*)ahi, (const int*)xlo, (const int*)xhi,
+            (const float*)blo, (const float*)bhi, out, B, C, H, W, st);
 }

@@ -23,9 +23,11 @@ activation dtype (``loftr_tpu.models.backbone._BnEvalAffine``).  In
 images of every pair, packed), computed in float32, and updates the running
 statistics in place.
 
-``_USE_PALLAS_UPSAMPLE`` (a module switch, default off, as in the JAX
-package) sends the two x2 upsamples of an inference forward through the
-upsample kernel module instead of the two-matmul form.
+The FPN's top-down merges (``lateral + x2 upsample of the coarser map``)
+go through ``_merge``: an inference forward takes the upsample-add kernel
+(``ops/kernels/upsample.py::upsample2x_add``, on channels-last maps; on
+the CPU its plain version, the same expression), training and any map
+that needs a gradient the differentiable two-matmul form.
 """
 from __future__ import annotations
 
@@ -36,20 +38,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from loftr_tpu_torch.ops.interpolate import upsample2x_align_corners
+from loftr_tpu_torch.ops.kernels import upsample as _kg
 from loftr_tpu_torch.parallel import comm
 from loftr_tpu_torch.utils.derived import derived
-
-
-_USE_PALLAS_UPSAMPLE = False
-
-
-def _upsample(x: torch.Tensor, train: bool) -> torch.Tensor:
-    """x2 align-corners upsample: the kernel module at inference when the
-    module switch is on, else the differentiable two-matmul form."""
-    if _USE_PALLAS_UPSAMPLE and not train and not x.requires_grad:
-        from loftr_tpu_torch.ops.kernels.upsample import upsample2x
-        return upsample2x(x)
-    return upsample2x_align_corners(x)
 
 
 def conv(in_ch: int, out_ch: int, kernel: int, stride: int = 1,
@@ -67,6 +58,27 @@ def apply_conv(m: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     w, b = derived(m, x.dtype, [m.weight, m.bias],
                    lambda: (m.weight.to(x.dtype), m.bias.to(x.dtype)))
     return F.conv2d(x, w, b, m.stride, m.padding)
+
+
+def _merge(outconv: nn.Conv2d, x: torch.Tensor, coarse: torch.Tensor,
+           train: bool) -> torch.Tensor:
+    """The FPN's top-down merge: the lateral ``apply_conv(outconv, x)`` +
+    x2 align-corners upsample of coarse.  Training, or a map that needs a
+    gradient, takes the differentiable two-matmul form; an inference
+    forward takes the upsample-add kernel.  On the card its operands are
+    made channels-last first: a no-op for the maps of a BatchNorm or
+    folded backbone (the stem's one-channel view keeps every convolution
+    channels-last), a copy for a ``group`` one (CUDA's GroupNorm returns
+    NCHW).  The lateral is formed here, so it is freed before the fusion
+    block runs."""
+    lateral = apply_conv(outconv, x)
+    if train or lateral.requires_grad or coarse.requires_grad:
+        return lateral + upsample2x_align_corners(coarse)
+    if lateral.is_cuda:
+        cl = torch.channels_last
+        lateral = lateral.contiguous(memory_format=cl)
+        coarse = coarse.contiguous(memory_format=cl)
+    return _kg.upsample2x_add(lateral, coarse)
 
 
 def make_norm(kind: str, ch: int) -> nn.Module:
@@ -239,12 +251,10 @@ class ResNetFPN_8_2(_ResNetFPN):
         x2 = self.layer2(x1)                                  # 1/4
         x3 = self.layer3(x2)                                  # 1/8
         x3_out = apply_conv(self.layer3_outconv, x3)
-        x3_up = _upsample(x3_out, self.training)
-        x2_out = apply_conv(self.layer2_outconv, x2)
-        x2_out = apply_fusion(self.layer2_outconv2, x2_out + x3_up)
-        x2_up = _upsample(x2_out, self.training)
-        x1_out = apply_conv(self.layer1_outconv, x1)
-        x1_out = apply_fusion(self.layer1_outconv2, x1_out + x2_up)
+        x2_out = apply_fusion(self.layer2_outconv2, _merge(
+            self.layer2_outconv, x2, x3_out, self.training))
+        x1_out = apply_fusion(self.layer1_outconv2, _merge(
+            self.layer1_outconv, x1, x2_out, self.training))
         return x3_out.permute(0, 2, 3, 1), x1_out.permute(0, 2, 3, 1)
 
 
@@ -277,12 +287,10 @@ class ResNetFPN_16_4(_ResNetFPN):
         x3 = self.layer3(x2)                                  # 1/8
         x4 = self.layer4(x3)                                  # 1/16
         x4_out = apply_conv(self.layer4_outconv, x4)
-        x4_up = _upsample(x4_out, self.training)
-        x3_out = apply_conv(self.layer3_outconv, x3)
-        x3_out = apply_fusion(self.layer3_outconv2, x3_out + x4_up)
-        x3_up = _upsample(x3_out, self.training)
-        x2_out = apply_conv(self.layer2_outconv, x2)
-        x2_out = apply_fusion(self.layer2_outconv2, x2_out + x3_up)
+        x3_out = apply_fusion(self.layer3_outconv2, _merge(
+            self.layer3_outconv, x3, x4_out, self.training))
+        x2_out = apply_fusion(self.layer2_outconv2, _merge(
+            self.layer2_outconv, x2, x3_out, self.training))
         return x4_out.permute(0, 2, 3, 1), x2_out.permute(0, 2, 3, 1)
 
 

@@ -10,13 +10,15 @@ def _counters():
     from loftr_tpu_torch.ops.kernels.fine_stage import fused_fine_stage
     from loftr_tpu_torch.ops.kernels.focal_loss import fused_focal_sums
     from loftr_tpu_torch.ops.kernels.sinkhorn import fused_sinkhorn_match
-    from loftr_tpu_torch.ops.kernels.upsample import upsample2x
+    from loftr_tpu_torch.ops.kernels.upsample import (upsample2x,
+                                                      upsample2x_add)
     from loftr_tpu_torch.ops.kernels.window_attention import \
         window_linear_attention
     return {"coarse_layer": (fused_coarse_layer, "launches"),
             "sinkhorn": (fused_sinkhorn_match, "launches"),
             "window_attention": (window_linear_attention, "launches"),
             "upsample": (upsample2x, "launches"),
+            "upsample_add": (upsample2x_add, "launches"),
             "dual_softmax": (fused_dual_softmax_match, "launches"),
             "fine_stage": (fused_fine_stage, "launches"),
             "focal_loss_forward": (fused_focal_sums, "launches"),

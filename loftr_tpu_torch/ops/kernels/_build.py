@@ -49,6 +49,7 @@ SIGNATURES = {
     "loftr_sinkhorn_bf16": [_P] * 22 + [_I] * 8 + [_F, _P],
     "loftr_window_attention": [_P] * 4 + [_I] * 4 + [_F, _I, _P],
     "loftr_upsample2x": [_P] * 10 + [_I] * 4 + [_P],
+    "loftr_upsample2x_add": [_P] * 11 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

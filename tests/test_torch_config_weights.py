@@ -182,7 +182,8 @@ def _is_forbidden(mod):
                for p in ("jax", "flax", "optax", "orbax", "loftr_tpu"))
 
 
-@pytest.mark.parametrize("root", ["loftr_tpu_torch", "chip_smoke.py"])
+@pytest.mark.parametrize("root", ["loftr_tpu_torch", "chip_smoke.py",
+                                  "tests/test_torch_upsample_card.py"])
 def test_no_jax_imports_in_port_sources(root):
     path = os.path.join(REPO, root)
     files = [path] if path.endswith(".py") else [

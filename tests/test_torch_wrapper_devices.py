@@ -12,7 +12,7 @@ from loftr_tpu_torch.ops.kernels.dual_softmax import fused_dual_softmax_match
 from loftr_tpu_torch.ops.kernels.fine_stage import fused_fine_stage
 from loftr_tpu_torch.ops.kernels.focal_loss import fused_focal_sums
 from loftr_tpu_torch.ops.kernels.sinkhorn import fused_sinkhorn_match
-from loftr_tpu_torch.ops.kernels.upsample import upsample2x
+from loftr_tpu_torch.ops.kernels.upsample import upsample2x, upsample2x_add
 from loftr_tpu_torch.ops.kernels.window_attention import \
     window_linear_attention
 
@@ -34,6 +34,8 @@ WRAPPERS = {
     "sinkhorn": (lambda a, b: fused_sinkhorn_match(a, b, torch.tensor(1.0)),
                  [(1, 7, 256), (1, 5, 256)]),
     "upsample": (lambda x: upsample2x(x), [(1, 4, 3, 5)]),
+    "upsample_add": (lambda lat, x: upsample2x_add(lat, x),
+                     [(1, 8, 6, 10), (1, 8, 3, 5)]),
     "window_attention": (lambda q, k, v: window_linear_attention(q, k, v, 8),
                          [(2, 25, 128)] * 3),
 }
